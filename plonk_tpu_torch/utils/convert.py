@@ -1,0 +1,73 @@
+"""Carry the JAX package's setup artefacts and proofs across.
+
+The SRS and the fixed-base window table play the part that weights play
+in a model: made once, then fed to every proof. These helpers turn the
+JAX package's arrays (numpy, uint32 words and bool flags, including the
+`x/y/inf` arrays of a `fbtable_*.npz` cache file) into this package's
+int64 tensors, and proofs both ways. Nothing here imports JAX: any array
+that `np.asarray` accepts will do.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.plonk import POINT_FIELDS, SCALAR_FIELDS, Proof
+from ..models.srs import SRS
+from ..ops.curve import G1, G2
+from ..ops.fixed_base import FixedBaseTable
+
+
+def _words(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+
+
+def _flags(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(bool), device=device)
+
+
+def srs_from_numpy(g1_x, g1_y, g1_inf, g2_1, g2_s, mode: str,
+                   device) -> SRS:
+    """SRS from G1 coordinate/flag arrays and the two G2 points as (x, y)
+    pairs, all Montgomery words."""
+    return SRS(g1s=G1(_words(g1_x, device), _words(g1_y, device),
+                      _flags(g1_inf, device)),
+               g2_1=G2(_words(g2_1[0], device), _words(g2_1[1], device)),
+               g2_s=G2(_words(g2_s[0], device), _words(g2_s[1], device)),
+               mode=mode)
+
+
+def table_from_numpy(x, y, inf, window_bits: int,
+                     device) -> FixedBaseTable:
+    """FixedBaseTable from (n_windows, n_buckets, L) arrays."""
+    return FixedBaseTable(x=_words(x, device), y=_words(y, device),
+                          inf=_flags(inf, device),
+                          window_bits=int(window_bits))
+
+
+def proof_from_numpy(proof, device) -> Proof:
+    """Proof of tensors from any object with the Proof field names whose
+    points have .x/.y/.inf (e.g. a JAX Proof, or proof_to_numpy's
+    output)."""
+    fields = {}
+    for name in POINT_FIELDS:
+        pt = getattr(proof, name)
+        fields[name] = G1(_words(pt.x, device), _words(pt.y, device),
+                          _flags(pt.inf, device))
+    for name in SCALAR_FIELDS:
+        fields[name] = _words(getattr(proof, name), device)
+    return Proof(**fields)
+
+
+def proof_to_numpy(proof: Proof) -> Proof:
+    """Proof of numpy arrays in the JAX package's dtypes (uint32 words,
+    bool flags)."""
+    fields = {}
+    for name in POINT_FIELDS:
+        pt = getattr(proof, name)
+        fields[name] = G1(pt.x.cpu().numpy().astype(np.uint32),
+                          pt.y.cpu().numpy().astype(np.uint32),
+                          pt.inf.cpu().numpy().astype(bool))
+    for name in SCALAR_FIELDS:
+        fields[name] = getattr(proof, name).cpu().numpy().astype(np.uint32)
+    return Proof(**fields)

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`; every test skips where torch sees no CUDA device. This file
+imports no JAX, so it also runs on a machine that has no JAX:
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
+
+(--noconftest skips tests/conftest.py, which sets up JAX.)
+"""
+import numpy as np
+import pytest
+import torch
+
+from plonk_tpu.utils.params import SCALED_CURVE, SCALED_FQ, SCALED_FR
+from plonk_tpu_torch.models import plonk_scaled as PS
+from plonk_tpu_torch.models.plonk import POINT_FIELDS, SCALAR_FIELDS
+from plonk_tpu_torch.models.synthetic import square_chain_circuit
+from plonk_tpu_torch.ops import commit as CM
+from plonk_tpu_torch.ops import curve as C
+from plonk_tpu_torch.ops import ntt as N
+from plonk_tpu_torch.ops.field import MontField
+from plonk_tpu_torch.ops.row_stages import row_stages, row_stages_plain
+from plonk_tpu_torch.utils import kernels
+
+pytestmark = pytest.mark.cuda
+
+Fr, Fq = MontField(SCALED_FR), MontField(SCALED_FQ)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.parametrize("R,C", [(16, 256), (8, 1024), (3, 2), (1280, 1024)])
+def test_row_stages_kernel_matches_plain(dev, R, C):
+    n = C << (R - 1).bit_length()      # a transform size with R rows or more
+    w = SCALED_FR.root_of_unity(n)
+    intra, _ = N._device_tables(Fr, w, n, C, dev)
+    g = torch.Generator(device="cpu").manual_seed(R + C)
+    y = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    before = kernels.LAUNCHES["row_stages"]
+    got = row_stages(Fr.p, Fr.n_prime, y, intra)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_stages"] == before + 1
+    assert torch.equal(got, row_stages_plain(Fr.p, Fr.n_prime, y, intra))
+
+
+@pytest.mark.parametrize("n,batch", [(4096, 1), (4096, 3), (1 << 14, 2)])
+def test_ntt_on_cuda_matches_cpu(dev, n, batch):
+    w = SCALED_FR.root_of_unity(n)
+    x = torch.randint(0, Fr.p, (batch, n),
+                      generator=torch.Generator().manual_seed(n))
+    want = N.ntt(Fr, x, w)
+    before = kernels.LAUNCHES["row_stages"]
+    assert torch.equal(N.ntt(Fr, x.to(dev), w).cpu(), want)
+    assert torch.equal(N.intt(Fr, want.to(dev), w).cpu(), x)
+    # every blocked transform on the card goes through K1, however few rows
+    assert kernels.LAUNCHES["row_stages"] == before + 2
+
+
+def _assert_affine_equal(a: C.G1, b: C.G1):
+    assert torch.equal(a.inf, b.inf)
+    assert torch.equal(a.x, b.x) and torch.equal(a.y, b.y)
+
+
+@pytest.mark.parametrize("L,B", [(40, 3), (1000, 9), (5000, 2)])
+def test_commit_kernel_matches_plain(dev, L, B):
+    rng = np.random.default_rng(L)
+    r = SCALED_CURVE.r
+    # repeated, opposite and infinity bases exercise every case of the
+    # complete addition
+    ks = rng.integers(0, 40, size=L)
+    ks[1::3] = r - ks[1::3]
+    g = C.g1_generator(SCALED_CURVE, Fq, dev)
+    pts = C.g1_mul(Fq, g, torch.as_tensor(ks % r, device=dev),
+                   nbits=r.bit_length())
+    tbl = CM.build_commit_table(Fq, pts, r.bit_length())
+    sc = rng.integers(0, r, size=(B, L))
+    sc[0, ::5] = 0
+    sc[min(1, B - 1)] = 0
+    scalars = torch.as_tensor(sc, device=dev)
+    got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
+    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
+    _assert_affine_equal(got, want)
+    assert bool(got.inf[min(1, B - 1)])
+
+
+def test_proof_on_cuda_matches_cpu(dev):
+    n = 16
+    ch, rnd = [1111, 2222, 3333, 4444, 5555], list(range(1, 10))
+    proofs = []
+    for d in ("cpu", dev):
+        ctx = PS.scaled_new(n, device=d)
+        sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, n)
+        proof, diags = PS.make_prover(ctx, sel, cp)(a, b, c, ch, rnd)
+        assert bool(diags.all_ok())
+        proofs.append(proof)
+    for name in POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(proofs[0], name)[k],
+                               getattr(proofs[1], name)[k].cpu()), name
+    for name in SCALAR_FIELDS:
+        assert int(getattr(proofs[0], name)) == int(getattr(proofs[1],
+                                                            name)), name
+    assert int(proofs[1].r_z) == 91913729

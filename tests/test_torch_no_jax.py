@@ -1,0 +1,32 @@
+"""The port never imports JAX: a fresh interpreter imports every module of
+plonk_tpu_torch, and neither `jax` nor any module of plonk_tpu other than
+the plain-dataclass `plonk_tpu.utils.params` is loaded."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import plonk_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(plonk_tpu_torch.__path__,
+                                               "plonk_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or (m.startswith("plonk_tpu.") and m not in
+                 ("plonk_tpu.utils", "plonk_tpu.utils.params")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.split(" ", 1)
+    assert int(count) >= 15
+    assert bad.strip() == "[]"
