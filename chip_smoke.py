@@ -26,14 +26,35 @@ algebra and its pairings:
 
     python3 chip_smoke.py --profile
 
+Then the BN254 path (models/plonk_bn254.py) at 2^12 gates, the size at
+which the JAX package configures its BN254 prover:
+  9. K3 (16-limb row NTT) against its plain version, word-equal, at the
+     path's three row shapes;
+ 10. bn254_setup(2^12) and the window table, timed; K4 (16-limb
+     fixed-base commit) against its plain version, affine-equal, at
+     B = 9, L = 4101 and on an edge batch;
+ 11. the n = 8 proof on the GPU against the CPU port and the JAX
+     package's recorded values;
+ 12. the main path: make_prover_bn254, prove (K3 and K4 launches
+     counted), diagnostics, make_vk_bn254, verify, tamper rejection;
+ 13. times: proofs/s over 5 reps with distinct blinding, the stage split
+     of a proof, device events and device time of a proof under
+     torch.profiler (so the idle share), verify, each kernel against its
+     plain version, peak memory.
+
 Any failure raises and exits non-zero before the result line. The last
-two lines are a JSON object of the kernels and the result JSON object.
+two lines are a JSON object of the kernels (with each one's bound: the
+larger of its bytes over 3.35 TB/s and its 32-bit multiply-adds over
+16.75 T/s, the H100's IMAD rate of 64 per SM per clock at 1.98 GHz; the
+bytes are those of the values, 4 per 31-bit word and 32 per BN254
+element, whatever the port stores them in) and the result JSON object.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,15 +62,21 @@ import time
 import numpy as np
 import torch
 
+from plonk_tpu_torch.models import plonk_bn254 as PB
 from plonk_tpu_torch.models import plonk_scaled as PS
-from plonk_tpu_torch.models.plonk import POINT_FIELDS, SCALAR_FIELDS
-from plonk_tpu_torch.models.synthetic import square_chain_circuit
+from plonk_tpu_torch.models.synthetic import (bn254_mul_circuit, from_words,
+                                              square_chain_circuit, words_vec)
+from plonk_tpu_torch.ops import bigcommit as BK
+from plonk_tpu_torch.ops import bigcurve as BC
+from plonk_tpu_torch.ops import bigntt as BN
 from plonk_tpu_torch.ops import commit as CM
 from plonk_tpu_torch.ops import curve as C
 from plonk_tpu_torch.ops import ntt as N
 from plonk_tpu_torch.ops import row_stages as RS
+from plonk_tpu_torch.ops.bigfield import BigMontField
 from plonk_tpu_torch.ops.field import MontField
 from plonk_tpu_torch.utils import kernels
+from plonk_tpu_torch.utils.params import BN254_FR
 
 N_MAIN = 1 << 16
 N_SMALL = 16
@@ -70,10 +97,52 @@ KERNELS = {
                         source="plonk_tpu_torch/csrc/commit.cu",
                         replaces="plonk_tpu/ops/pallas_msm.py:166"),
 }
+BN254_KERNELS = {
+    "big_row": dict(route="cuda", source="plonk_tpu_torch/csrc/big_row.cu",
+                    replaces="plonk_tpu/ops/pallas_bigntt.py:73"),
+    "big_commit": dict(route="cuda",
+                       source="plonk_tpu_torch/csrc/big_commit.cu",
+                       replaces="plonk_tpu/ops/pallas_bigmsm.py:423"),
+}
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+IMAD_PER_S = 132 * 64 * 1.98e9  # 32-bit multiply-adds: 64/SM/clock
+N_BN = 1 << 12
+N_BN_SMALL = 8
+BN_SECRET = 987654321
+BN_CH = [111111, 222222, 333333, 444444, 555555]
+BN_RND = list(range(17, 26))
+# the JAX package's n = 8 BN254 proof for (BN_CH, BN_RND), the circuit of
+# bn254_mul_circuit(8) and secret 987654321, standard form (recorded with
+# tests/test_torch_bn254.py::test_recompute_jax_values)
+BN_ANCHOR_SCALARS = dict(
+    a_z=0x136003277444e0948f970a92a66812d0a653c316b2b8b5fc05f8fa4328ba0289,
+    b_z=0x1b90e96c0d1aed1ebb9401e9d0d91fc43416b4e40cba3012ccc3cfbc617851d4,
+    c_z=0x13a8a59e751171a331cf4a3bd126bf06449b65855fbb59dc964221a38516604e,
+    s_sigma_1_z=0x6c81c,
+    s_sigma_2_z=0x21e88c,
+    r_z=0x15eb105fb82cb8907f56cfccde29852d8d5e8d90c24295af5ecf17bd02a8caef,
+    z_omega_z=0x1bbbb4a369d870ef5ae850ccac4d4e7b7ca474bb06bf5ba87d9b3b7e0250010a)
+BN_ANCHOR_POINTS = dict(
+    a_s=(0x226a857a70c5237092efbb553637324b4d00ad4d86167f5d0d163b630fcda920,
+         0x1f648a2d972f4f588724ed3d009338aab0abdabb0d895e58871c240e03c5a653),
+    w_z_omega_s=(
+        0xc012db6d0618ba653b09afef7e01817b629df224ef38c12a8762e4bbaa85a4,
+        0x211e9e5294d3b07a31257f566ddafbe05d9bdca44afd66be3d3a7910eceb924e))
+
+
+def bound_ms(n_bytes: float, n_imad: float):
+    """(least time in ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_imad / IMAD_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def check(cond, what: str) -> None:
@@ -104,18 +173,20 @@ def wall(fn):
     return out, time.perf_counter() - t
 
 
-def affine_err(a: C.G1, b: C.G1) -> int:
+def affine_err(a, b) -> int:
     """Largest word difference between two affine point batches
-    (x, y and the infinity flag)."""
-    return max(int((a.x - b.x).abs().max()), int((a.y - b.y).abs().max()),
-               int((a.inf != b.inf).sum()))
+    (x, y, infinity flag) of either curve."""
+    return max(int((a[0] - b[0]).abs().max()), int((a[1] - b[1]).abs().max()),
+               int((a[2] != b[2]).sum()))
 
 
 def proofs_equal(p, q) -> bool:
+    """Word equality of two proofs of either curve: nine affine points
+    (x, y, inf), then seven scalars."""
     return (all(torch.equal(getattr(p, f)[k].cpu(), getattr(q, f)[k].cpu())
-                for f in POINT_FIELDS for k in range(3))
-            and all(int(getattr(p, f)) == int(getattr(q, f))
-                    for f in SCALAR_FIELDS))
+                for f in p._fields[:9] for k in range(3))
+            and all(torch.equal(getattr(p, f).cpu(), getattr(q, f).cpu())
+                    for f in p._fields[9:]))
 
 
 STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
@@ -123,12 +194,14 @@ STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
 PROFILE_REPS = 3
 
 
-def staged_proofs(ctx, sel, cp, a, b, c, reps: int):
-    """`reps` proofs through prove_scaled with each stage and the batched
-    commit timed on the host clock, each ending in a device synchronise.
-    Returns the mean seconds per proof of each stage, of the rest of
-    prove_scaled (challenge encoding, decoding, diagnostics) and of the
-    whole proof; the parts add up to the whole."""
+def staged_proofs(mod, prove, prims, call, reps: int):
+    """`reps` proofs through `prove` of module `mod` (prove_scaled or
+    prove_bn254) with each of its four stages and the batched commit of
+    `prims` timed on the host clock, each ending in a device synchronise;
+    call(prove, prims, rep) makes one proof and returns its diagnostics.
+    Returns the mean seconds per proof of each stage, of the rest of the
+    prover (challenge encoding, decoding, diagnostics) and of the whole
+    proof; the parts add up to the whole."""
     times = collections.Counter()
 
     def timed(name, fn):
@@ -141,74 +214,98 @@ def staged_proofs(ctx, sel, cp, a, b, c, reps: int):
             return out
         return run
 
-    prims = PS.default_prims()
-    pre = PS.precompute_circuit(ctx, sel, cp, prims)
-    prims = prims._replace(commit_many=timed(
-        "commit", PS.table_commit(ctx, PS.fixed_base_table(ctx))))
-    saved = {name: getattr(PS, name) for name in STAGES}
+    prims = prims._replace(commit_many=timed("commit", prims.commit_many))
+    saved = {name: getattr(mod, name) for name in STAGES}
     try:
         for name in STAGES:
-            setattr(PS, name, timed(name.removeprefix("_stage_"),
-                                    saved[name]))
-        prove = timed("proof", PS.prove_scaled)
+            setattr(mod, name, timed(name.removeprefix("_stage_"),
+                                     saved[name]))
         for rep in range(reps):
-            _, d = prove(ctx, sel, cp, a, b, c, CH,
-                         [v + 100 + 9 * rep for v in RND], prims=prims,
-                         pre=pre)
+            d = call(timed("proof", prove), prims, rep)
             check(bool(d.all_ok()), f"staged proof {rep} diagnostics")
     finally:
         for name, fn in saved.items():
-            setattr(PS, name, fn)
+            setattr(mod, name, fn)
     mean = {k: v / reps for k, v in times.items()}
     mean["rest"] = mean["proof"] - sum(v for k, v in mean.items()
                                        if k != "proof")
     return mean
 
 
-def profiled_proofs(prover, a, b, c, reps: int):
-    """`reps` proofs under torch.profiler. Returns (device events per
-    proof, device microseconds per proof, host wall seconds per proof
-    while profiled, the top device kernels by time)."""
-    from torch.autograd import DeviceType
+DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profiled_proofs(run, reps: int):
+    """`reps` calls run(rep) under torch.profiler, recording device
+    activity only. Returns (device events per call, device microseconds
+    per call, host wall seconds per call while profiled, the top device
+    kernels by time). The device events are read from the Chrome trace
+    the profiler exports (its `key_averages()` builds a Python object and
+    a tree over every event, which takes minutes for the ~10^6 events of
+    a few BN254 proofs)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
         for rep in range(reps):
-            prover(a, b, c, CH, [v + 200 + 9 * rep for v in RND])
+            run(rep)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.Counter()
-    for e in dev:
-        by_name[e.name] += e.time_range.elapsed_us()
-    return (len(dev) / reps, sum(by_name.values()) / reps, wall_s / reps,
+    t = time.perf_counter()
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    path = os.path.join(kernels.BUILD_DIR, "profile_trace.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    print(f"trace export and parse {time.perf_counter() - t:.3f} s")
+    by_name, n_dev = collections.Counter(), 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_KINDS:
+            n_dev += 1
+            by_name[e["name"]] += float(e["dur"])
+    return (n_dev / reps, sum(by_name.values()) / reps, wall_s / reps,
             by_name.most_common(6))
+
+
+def print_profile(n_dev, dev_us, prof_s, top, proof_s: float) -> None:
+    """Print profiled_proofs' figures beside the unprofiled proof time."""
+    if n_dev == 0:
+        print("torch.profiler recorded no device events: device time and "
+              "idle share not measured")
+        return
+    print(f"torch.profiler, {PROFILE_REPS} proofs: {n_dev:.1f} device "
+          f"events and {dev_us / 1e3:.3f} ms of device time per proof; "
+          f"profiled proof {prof_s * 1e3:.3f} ms; unprofiled proof "
+          f"{proof_s * 1e3:.3f} ms, so {proof_s * 1e6 / n_dev:.3f} us "
+          f"of host time per device event and the device idle "
+          f"{100 * (1 - dev_us / 1e6 / proof_s):.1f} % of it")
+    for name, us in top:
+        print(f"  {us / PROFILE_REPS / 1e3:9.3f} ms/proof  {name[:100]}")
 
 
 def profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
                   proof_s: float) -> None:
     """proof_s: the mean unprofiled warm proof (seconds)."""
     phase("8 profile of the 2^16 proof and of verify")
-    st = staged_proofs(ctx, sel, cp, a, b, c, PROFILE_REPS)
+    prims = PS.default_prims()
+    pre = PS.precompute_circuit(ctx, sel, cp, prims)
+    prims = prims._replace(commit_many=PS.table_commit(
+        ctx, PS.fixed_base_table(ctx)))
+    st = staged_proofs(
+        PS, PS.prove_scaled, prims,
+        lambda prove, pr, rep: prove(
+            ctx, sel, cp, a, b, c, CH, [v + 100 + 9 * rep for v in RND],
+            prims=pr, pre=pre)[1], PROFILE_REPS)
     print(f"stages, mean of {PROFILE_REPS} proofs with a synchronise "
           "around each stage (ms): " + ", ".join(
               f"{k} {v * 1e3:.3f}" for k, v in st.items()))
-    n_dev, dev_us, prof_s, top = profiled_proofs(prover, a, b, c,
-                                                 PROFILE_REPS)
-    if n_dev == 0:
-        print("torch.profiler recorded no device events: device time and "
-              "idle share not measured")
-    else:
-        print(f"torch.profiler, {PROFILE_REPS} proofs: {n_dev:.1f} device "
-              f"events and {dev_us / 1e3:.3f} ms of device time per proof; "
-              f"profiled proof {prof_s * 1e3:.3f} ms; unprofiled proof "
-              f"{proof_s * 1e3:.3f} ms, so {proof_s * 1e6 / n_dev:.3f} us "
-              f"of host time per device event and the device idle "
-              f"{100 * (1 - dev_us / 1e6 / proof_s):.1f} % of it")
-        for name, us in top:
-            print(f"  {us / PROFILE_REPS / 1e3:9.3f} ms/proof  {name[:100]}")
+    n_dev, dev_us, prof_s, top = profiled_proofs(
+        lambda rep: prover(a, b, c, CH, [v + 200 + 9 * rep for v in RND]),
+        PROFILE_REPS)
+    print_profile(n_dev, dev_us, prof_s, top, proof_s)
     pts, points_s = wall(lambda: PS._verify_points(ctx, vk, proof, CH))
     w1, r1, w2, r2 = pts
     oks, pair_s = wall(lambda: PS._pairing_ratio_checks(
@@ -216,6 +313,259 @@ def profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
     check(bool(oks.all()), "profiled verify accepts")
     print(f"verify split: G1 algebra {points_s:.3f} s, pairing checks "
           f"{pair_s:.3f} s")
+
+
+# Bytes of the values themselves, whatever the port's storage: a 31-bit
+# field word is 4 bytes, a BN254 Fr or Fq element 32, a flag 1.
+WORD_BYTES = 4
+BIG_BYTES = 32
+
+
+def selected_entries(digits: torch.Tensor, nb: int) -> int:
+    """Distinct (window, digit, point) table entries with a nonzero digit
+    that some commitment selects; digits (B, W, L)."""
+    B, W, L = digits.shape
+    hit = torch.zeros((W, nb, L), dtype=torch.bool, device=digits.device)
+    for b in range(B):
+        hit.scatter_(1, digits[b][:, None, :], True)
+    return int(hit[:, 1:].sum())
+
+
+def row_stages_bound(y, intra):
+    """K1's least time: rows of 31-bit words read and written once, the
+    stage table read once; three 32-bit multiplies per Montgomery
+    product, C/2 products per stage and row."""
+    R, C = y.shape
+    S = C.bit_length() - 1
+    return bound_ms((2 * R * C + intra.numel()) * WORD_BYTES,
+                    R * C // 2 * S * 3)
+
+
+def commit_bound(table, scalars):
+    """K2's least time, counted on this run's scalars: the 31-bit scalars
+    read once, each table entry that some nonzero digit selects read once
+    (x, y and its infinity flag), the Jacobian output written once; one
+    complete addition (16 products of 3 multiplies) per nonzero-digit,
+    non-identity term. Returns (bound, terms, distinct entries)."""
+    wb = int(table.window_bits)
+    W, nb, L = table.x.shape
+    digits = torch.stack([(scalars >> (w * wb)) & (nb - 1)
+                          for w in range(W)], dim=1)        # (B, W, L)
+    hit = table.inf[torch.arange(W, device=digits.device)[None, :, None],
+                    digits, torch.arange(L, device=digits.device)]
+    terms = int(((digits != 0) & ~hit).sum())
+    entries = selected_entries(digits, nb)
+    n_bytes = ((scalars.numel() + 3 * scalars.shape[0]) * WORD_BYTES
+               + entries * (2 * WORD_BYTES + 1))
+    return bound_ms(n_bytes, terms * 16 * 3), terms, entries
+
+
+def big_row_bound(R: int, C: int, scaled: bool):
+    """K3's least time: rows of BN254-Fr elements read and written once,
+    the C/2 distinct twiddles of each stage read once; 136 32-bit
+    multiply-adds per product."""
+    S = C.bit_length() - 1
+    n_bytes = (2 * R * C + S * C // 2) * BIG_BYTES
+    n_mul = R * (C // 2 * S + (C if scaled else 0))
+    return bound_ms(n_bytes, n_mul * 136)
+
+
+def big_commit_bound(table, scalars):
+    """K4's least time, counted on this run's scalars: the Fr scalars read
+    once, the infinity flags of the base points read once, each table
+    entry that some nonzero digit selects read once (x and y in Fq), the
+    Jacobian output written once; 11 products (136 multiply-adds each)
+    per term with a nonzero digit. Returns (bound, terms, distinct
+    entries)."""
+    digits = BK.commit_digits(table, scalars).long()          # (B, W, L)
+    B, W, L = digits.shape
+    terms = int((digits != 0).sum())
+    entries = selected_entries(digits, table.x.shape[1])
+    n_bytes = ((B * L + entries * 2 + 3 * B) * BIG_BYTES + L)
+    return bound_ms(n_bytes, terms * 11 * 136), terms, entries
+
+
+def bn254_phases(dev, card: str, profile: bool):
+    """The BN254 phases 9-13; returns (kernel entries for the kernels
+    line, timings)."""
+    timings, errs, kms, bounds = {}, {}, {}, {}
+    Fr = BigMontField(BN254_FR)
+    Fq = BigMontField(BC.BN254_FQ)
+
+    phase("9 K3 big_row vs plain at the 2^12 path's shapes")
+    m = 4 * N_BN
+    n1, n2 = BN._split(m)
+    w4 = BN254_FR.root_of_unity(m)
+    rng = np.random.default_rng(1)
+    k3_cases = {
+        # precompute forward (10 rows), per-proof forward (6), inverse (1)
+        "precompute fwd (1280, 128)": (10 * n2, n1, pow(w4, n2, Fr.p), True,
+                                       None),
+        "proof fwd (768, 128)": (6 * n2, n1, pow(w4, n2, Fr.p), True, None),
+        "inverse (128, 128) scaled": (n1, n2, pow(pow(w4, -1, Fr.p), n2,
+                                                  Fr.p), False,
+                                      pow(m, -1, Fr.p)),
+    }
+    k3_inputs = {}
+    for name, (R, C, w, dif, scale) in k3_cases.items():
+        vals = rng.integers(0, 1 << 16, size=(R, C, 16))
+        vals[..., 15] &= 0x0FFF                     # < 2^252 < r
+        y = torch.as_tensor(vals, device=dev)
+        tw = torch.as_tensor(BN._row_tables(Fr, w, C), device=dev)
+        sc = None if scale is None else Fr.const(scale)
+        got = BN.big_row_pass(Fr, y, w, dif, scale)
+        want = BN.big_row_pass_plain(Fr, y, tw, dif, sc)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        print(f"K3 {name}: max_abs_err {err}")
+        check(err == 0, f"K3 word-equal at {name}")
+        errs["big_row"] = max(errs.get("big_row", 0), err)
+        k3_inputs[name] = (y, tw, w, dif, scale, sc)
+        bounds.setdefault("big_row", big_row_bound(R, C, scale is not None))
+
+    phase("10 bn254_setup(2^12), window table, K4 big_commit vs plain")
+    ctx, timings["bn_setup_s"] = wall(
+        lambda: PB.bn254_setup(N_BN, secret=BN_SECRET, device=dev))
+    tbl, timings["bn_table_build_s"] = wall(
+        lambda: PB.bn254_fixed_base_table(ctx))
+    L = ctx.srs.length
+    print(f"bn254_setup(2^12) {timings['bn_setup_s']:.3f} s, L = {L}; "
+          f"window table {tuple(tbl.x.shape)} "
+          f"{timings['bn_table_build_s']:.3f} s")
+    check(L == N_BN + 5, "SRS length n + 5")
+    sc = rng.integers(0, 1 << 16, size=(9, L, 16))
+    sc[..., 15] &= 0x0FFF
+    scalars = torch.as_tensor(sc, device=dev)
+    got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, tbl, scalars))
+    # the plain version is launch-bound (seconds): one synchronised call,
+    # timed on the host clock, is both its check and its time
+    plain, k4_plain_s = wall(
+        lambda: BK.big_commit_many_plain(Fq, tbl, scalars))
+    want = BC.big_to_affine(Fq, plain)
+    err = affine_err(got, want)
+    print(f"K4 B=9 L={L}: max_abs_err {err}")
+    check(err == 0 and not bool(got[2].any()), "K4 affine-equal, B=9")
+    bounds["big_commit"], terms, entries = big_commit_bound(tbl, scalars)
+    # zero scalars; repeated, opposite (negated y) and infinity base points
+    ks = rng.integers(1, 64, size=512)
+    ks[5::50] = 0
+    bits = np.stack([BC.scalar_to_bits(int(k), 6) for k in ks])
+    pts = BC.big_jac_mul(Fq, BC.bn254_generator(Fq, (len(ks),), dev), bits,
+                         6)
+    neg = torch.zeros(len(ks), dtype=torch.bool, device=dev)
+    neg[1::3] = True
+    pts = pts._replace(Y=torch.where(neg[:, None], Fq.neg(pts.Y), pts.Y))
+    edge_tbl = BC.build_big_table(Fq, pts, 4, 254)
+    esc = rng.integers(0, 1 << 16, size=(3, len(ks), 16))
+    esc[..., 15] &= 0x0FFF
+    esc[0, ::4] = 0
+    esc[1] = 0
+    edge = torch.as_tensor(esc, device=dev)
+    got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, edge_tbl, edge))
+    want = BC.big_to_affine(Fq, BK.big_commit_many_plain(Fq, edge_tbl, edge))
+    err2 = affine_err(got, want)
+    print(f"K4 edge batch (zero rows, infinity/repeated/opposite bases): "
+          f"max_abs_err {err2}, infinity rows {got[2].tolist()}")
+    check(err2 == 0 and bool(got[2][1]), "K4 affine-equal, edge batch")
+    errs["big_commit"] = max(err, err2)
+
+    phase("11 n = 8 BN254 proof: GPU vs CPU port vs recorded JAX values")
+    small = []
+    sel8, cp8, a8, b8, c8 = bn254_mul_circuit(N_BN_SMALL)
+    for d in ("cpu", dev):
+        c_ = PB.bn254_setup(N_BN_SMALL, secret=BN_SECRET, device=d)
+        proof, diags = PB.make_prover_bn254(c_, sel8, cp8)(
+            a8, b8, c8, words_vec(BN_CH), words_vec(BN_RND))
+        check(bool(diags.all_ok()), f"n=8 diagnostics on {d}")
+        small.append(proof)
+    p_cpu, p_gpu = small
+    check(proofs_equal(p_cpu, p_gpu), "n=8 GPU proof equals CPU proof")
+    for name, v in BN_ANCHOR_SCALARS.items():
+        check(from_words(getattr(p_gpu, name).cpu()) == v, f"anchor {name}")
+    for name, (x, y) in BN_ANCHOR_POINTS.items():
+        pt = getattr(p_gpu, name)
+        check(not bool(pt.inf) and from_words(pt.x.cpu()) == x
+              and from_words(pt.y.cpu()) == y, f"anchor {name}")
+    print(f"n=8 proof equal on GPU and CPU; {len(BN_ANCHOR_SCALARS)} scalars "
+          f"and {len(BN_ANCHOR_POINTS)} points match the JAX values")
+
+    phase("12 BN254 main path at 2^12 gates")
+    sel, cp, a, b, c = bn254_mul_circuit(N_BN, seed=0)
+    ch, rnd = words_vec(BN_CH), words_vec(BN_RND)
+    prover, timings["bn_make_prover_s"] = wall(
+        lambda: PB.make_prover_bn254(ctx, sel, cp))
+    kernels.reset_counts()
+    (proof, diags), timings["bn_first_proof_s"] = wall(
+        lambda: prover(a, b, c, ch, rnd))
+    launches = dict(kernels.LAUNCHES)
+    print(f"make_prover_bn254 {timings['bn_make_prover_s']:.3f} s; first "
+          f"proof {timings['bn_first_proof_s']:.3f} s; launches {launches}")
+    check(bool(diags.all_ok()), f"2^12 diagnostics {diags}")
+    for name in BN254_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} launched by the prove")
+    vk, timings["bn_vk_s"] = wall(lambda: PB.make_vk_bn254(ctx, sel, cp))
+    ok, timings["bn_verify_s"] = wall(
+        lambda: PB.verify_bn254(ctx, vk, proof, ch))
+    bad = proof._replace(r_z=torch.as_tensor(words_vec(
+        [(from_words(proof.r_z.cpu()) + 1) % BN254_FR.p])[0].astype(
+            np.int64), device=dev))
+    rejected = not PB.verify_bn254(ctx, vk, bad, ch)
+    print(f"diags.all_ok True; verify {ok} ({timings['bn_verify_s']:.3f} "
+          f"s); tampered r_z rejected {rejected}")
+    check(ok and rejected, "BN254 verify accepts and rejects the tampered "
+          "proof")
+
+    phase("13 BN254 timings")
+    rnd_rep = lambda rep: words_vec([v + 100 + 9 * rep for v in BN_RND])
+    t = time.perf_counter()
+    for rep in range(PROOF_REPS):
+        _, d = prover(a, b, c, ch, rnd_rep(rep))
+        check(bool(d.all_ok()), f"BN254 rep {rep} diagnostics")
+    torch.cuda.synchronize()
+    timings["bn_proofs_per_s"] = PROOF_REPS / (time.perf_counter() - t)
+    proof_s = 1 / timings["bn_proofs_per_s"]
+    prims = PB._local_prims(ctx)
+    pre = PB.precompute_bn254(ctx, sel, cp, prims)
+    st = staged_proofs(
+        PB, PB.prove_bn254, prims,
+        lambda prove, pr, rep: prove(ctx, sel, cp, a, b, c, ch,
+                                     rnd_rep(10 + rep), prims=pr,
+                                     pre=pre)[1], PROFILE_REPS)
+    print(f"stages, mean of {PROFILE_REPS} proofs with a synchronise "
+          "around each stage (ms): " + ", ".join(
+              f"{k} {v * 1e3:.3f}" for k, v in st.items()))
+    n_dev, dev_us, prof_s, top = profiled_proofs(
+        lambda rep: prover(a, b, c, ch, rnd_rep(20 + rep)), PROFILE_REPS)
+    print_profile(n_dev, dev_us, prof_s, top, proof_s)
+    if profile:
+        pts_, pts_s = wall(lambda: PB._verify_points(ctx, vk, proof, ch))
+        oks, pair_s = wall(lambda: PB._pairing_ratio_flags(ctx, *pts_))
+        check(all(bool(o) for o in oks), "profiled BN254 verify accepts")
+        print(f"BN254 verify split: G1 algebra {pts_s:.3f} s, pairing "
+              f"checks {pair_s:.3f} s")
+    for name, (y, tw, w, dif, scale, sc_) in k3_inputs.items():
+        k = cuda_ms(lambda: BN.big_row_pass(Fr, y, w, dif, scale), reps=100)
+        pl = cuda_ms(lambda: BN.big_row_pass_plain(Fr, y, tw, dif, sc_),
+                     reps=3)
+        kms[f"big_row {name}"] = (k, pl)
+    k = cuda_ms(lambda: BK.big_commit_many(Fq, tbl, scalars), reps=50)
+    kms[f"big_commit B=9 L={L}"] = (k, k4_plain_s * 1e3)
+    timings["bn_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"card: {card}")
+    for key, v in timings.items():
+        print(f"{key} {v:.6f}")
+    print(f"K4 terms with a nonzero digit: {terms}; distinct table entries "
+          f"they select: {entries}")
+    for key, (k, pl) in kms.items():
+        print(f"{key}: kernel {k:.6f} ms, plain {pl:.6f} ms")
+    first = {name: next(v for k_, v in kms.items() if k_.startswith(name))
+             for name in BN254_KERNELS}
+    entries = [dict(name=name, **meta, launches=launches.get(name, 0),
+                    max_abs_err=errs[name], ms=first[name][0],
+                    plain_ms=first[name][1], bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1], library_ms=None)
+               for name, meta in BN254_KERNELS.items()]
+    return entries, timings
 
 
 def main() -> None:
@@ -365,10 +715,11 @@ def main() -> None:
     timings["proofs_per_s"] = PROOF_REPS / (time.perf_counter() - t)
     kms = {}
     for name, (y, intra) in k1_inputs.items():
-        k = cuda_ms(lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra))
+        k = cuda_ms(lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra),
+                    reps=100)
         pl = cuda_ms(lambda: RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra))
         kms[f"row_stages {name}"] = (k, pl)
-    k = cuda_ms(lambda: CM.commit_many(Fq, tbl, scalars))
+    k = cuda_ms(lambda: CM.commit_many(Fq, tbl, scalars), reps=100)
     pl = cuda_ms(lambda: CM.commit_many_plain(Fq, tbl, scalars), reps=3)
     kms[f"commit_many B=9 L={L}"] = (k, pl)
     timings["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -380,15 +731,20 @@ def main() -> None:
     if args.profile:
         profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
                       1 / timings["proofs_per_s"])
-    check("jax" not in sys.modules, "no JAX imported")
-
     first = {name: next(v for k_, v in kms.items() if k_.startswith(name))
              for name in KERNELS}
-    print(json.dumps({"kernels": [
-        dict(name=name, **meta, launches=launches.get(name, 0),
-             max_abs_err=errs[name], ms=first[name][0],
-             plain_ms=first[name][1])
-        for name, meta in KERNELS.items()]}))
+    bounds = {"row_stages": row_stages_bound(*next(iter(k1_inputs.values())))}
+    bounds["commit_many"], terms2, entries2 = commit_bound(tbl, scalars)
+    print(f"K2 terms with a nonzero digit: {terms2}; distinct table entries "
+          f"they select: {entries2}")
+    entries = [dict(name=name, **meta, launches=launches.get(name, 0),
+                    max_abs_err=errs[name], ms=first[name][0],
+                    plain_ms=first[name][1], bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1], library_ms=None)
+               for name, meta in KERNELS.items()]
+    bn_entries, _ = bn254_phases(dev, card, args.profile)
+    check("jax" not in sys.modules, "no JAX imported")
+    print(json.dumps({"kernels": entries + bn_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,29 @@
-"""PyTorch + CUDA port of the scaled-curve PLONK prover and verifier.
+"""PyTorch + CUDA port of the PLONK provers and verifiers: the scaled
+pairing curve and BN254.
 
 The JAX package `plonk_tpu` is the reference; every module here keeps the
 name and the function names of its counterpart there, and the tests in
 `tests/test_torch_*.py` hold the two against each other.
 
-Representation: every field element is a word in [0, p) with p < 2^31,
-stored in an **int64** tensor. Montgomery words (R = 2^32) equal the
-`uint32` words of `plonk_tpu.ops.field.MontField`; numpy `uint32` arrays
-from the JAX side are converted at the boundary (`utils/convert.py`).
-int64 is used on every device: a product of two words fits it exactly,
-and torch's CPU backend has no `uint32` add, shift or compare.
+Representation, held in **int64** tensors on every device (torch's CPU
+backend has no `uint32` add, shift or compare):
+- scaled curve: a field element is one word in [0, p) with p < 2^31; its
+  Montgomery word (R = 2^32) equals the `uint32` word of
+  `plonk_tpu.ops.field.MontField`;
+- BN254: a field element is 16 little-endian 16-bit words (R = 2^256),
+  equal to the words of `plonk_tpu.ops.bigfield.BigMontField`.
+numpy `uint32` arrays from the JAX side are converted at the boundary
+(`utils/convert.py`).
 
 Point-at-infinity flags are `bool` tensors. The device of the tensors
-decides where work runs: on a CUDA tensor the two hand-written kernels in
-`csrc/` (the row-stage NTT `ops/row_stages.py` and the fixed-base commit
-`ops/commit.py`) launch; on a CPU tensor their plain PyTorch versions run.
+decides where work runs: on a CUDA tensor the hand-written kernels in
+`csrc/` launch (the row-stage NTT `ops/row_stages.py`, the fixed-base
+commit `ops/commit.py`, and their 16-limb BN254 counterparts
+`ops/bigntt.py` and `ops/bigcommit.py`); on a CPU tensor their plain
+PyTorch versions run. The entry points (`scaled_new`, `srs_create`,
+`bn254_setup`) put their context on the CUDA card unless given
+`device="cpu"`.
 
-This package never imports `jax`. The only module of `plonk_tpu` it
-imports is `plonk_tpu.utils.params`, which holds plain dataclasses.
+This package imports neither `jax` nor any module of `plonk_tpu`; it
+keeps its own copy of the parameters it needs (`utils/params.py`).
 """

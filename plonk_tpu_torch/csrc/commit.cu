@@ -12,8 +12,9 @@
 // Bound on the H100: integer multiply throughput. Each (b, i, w) term costs
 // one complete Jacobian addition (~16 Montgomery products, each a 32x32->64
 // multiply plus a 32-bit multiply-low and a 64-bit multiply-add); the
-// table is read once per commitment (17 bytes per entry with int64
-// coordinates) and mostly hits L2 after the first commitment.
+// selected table entries are 9 bytes of value each (x, y, infinity flag;
+// 17 in the port's int64 storage), read once per commitment and mostly
+// from L2 after the first commitment.
 // Design: the TPU kernel swept every bucket d and selected by mask, because
 // TPU gathers run element by element; a GPU thread reads
 // table[w][digit][i] directly, so there is no sweep. Grid = (point tiles,

@@ -11,9 +11,9 @@
 // TPU kernel's lane vector, so any (log2 C, C) table gives the same words.
 //
 // Bound on the H100: device memory. Each row is read once and written once
-// (16 bytes per word with int64 I/O); the log2(C) stages in between cost
-// ~2 * log2(C) Montgomery products per word, far below the card's integer
-// rate, plus one block barrier per stage.
+// (8 bytes of value per 31-bit word; the port's int64 I/O moves 16); the
+// log2(C) stages in between cost log2(C)/2 Montgomery products per word,
+// below the card's integer rate, plus one block barrier per stage.
 // Design: one block per row, C/2 threads, the row kept in shared memory
 // (4 KB at C = 1024) for all stages, one butterfly per thread per stage.
 // The twiddle table (40 KB at C = 1024) is shared by all rows and stays in

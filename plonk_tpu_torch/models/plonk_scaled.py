@@ -19,7 +19,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from plonk_tpu.utils.params import PlonkParams, scaled_plonk_params
 from ..ops import ntt as N
 from ..ops import poly as P
 from ..ops.commit import build_commit_table, msm_fixed_base_many_kernel
@@ -27,6 +26,8 @@ from ..ops.curve import (G1, GT, _sel, g1_add, g1_generator, g1_mul, g1_neg,
                          gt_equal, gt_inv, gt_mul)
 from ..ops.field import MontField
 from ..ops.pairing import final_exponentiation, miller_loop
+from ..utils.kernels import resolve_device
+from ..utils.params import PlonkParams, scaled_plonk_params
 from .plonk import Proof
 from .srs import SRS, srs_create
 
@@ -100,10 +101,12 @@ class ScaledContext:
 
 def scaled_new(n: int, secret: int = 123456789, srs_mode: str = "fixed",
                params: PlonkParams | None = None,
-               device="cpu") -> ScaledContext:
-    """Trusted setup + context for an n-gate scaled circuit on `device`."""
+               device=None) -> ScaledContext:
+    """Trusted setup + context for an n-gate scaled circuit on `device`
+    (default: the CUDA card; pass device="cpu" for the CPU)."""
     pp = params if params is not None else scaled_plonk_params(n)
     Fq = MontField(pp.curve.base)
+    device = resolve_device(device)
     srs = srs_create(Fq, pp.curve, secret, n + 5, mode=srs_mode,
                      device=device)
     return ScaledContext(params=pp, srs=srs, n=n)

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..ops.curve import G1, G2, g1_generator, g1_mul, g2_generator, g2_mul
+from ..utils.kernels import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +33,10 @@ class SRS:
 
 
 def srs_create(Fq, curve, secret: int, n: int, mode: str = "reference",
-               device="cpu") -> SRS:
-    """Build the SRS with n+1 G1 powers on `device`."""
+               device=None) -> SRS:
+    """Build the SRS with n+1 G1 powers on `device` (default: the CUDA
+    card; pass device="cpu" for the CPU)."""
+    device = resolve_device(device)
     length = n + 1
     if mode == "reference":
         secret = secret % Fq.p

@@ -1,12 +1,16 @@
-"""Synthetic scaled circuits (port of `plonk_tpu/models/synthetic.py`).
+"""Synthetic circuits (port of `plonk_tpu/models/synthetic.py`).
 
 square_chain_circuit(n): n multiplication gates computing the chain
 x, x^2, x^4, ..., with copy constraints wiring b_i = a_i and
-a_{i+1} = c_i.
+a_{i+1} = c_i (the scaled curve).
+bn254_mul_circuit(n): the BN254 prover's bench circuit, n independent
+multiplication gates over BN254-Fr as 16-bit-word arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.params import BN254_FR
 
 # copy-constraint wire tags (plonk_tpu/models/constraints.py:31)
 COPYOF_A, COPYOF_B, COPYOF_C = 0, 1, 2
@@ -47,3 +51,37 @@ def square_chain_circuit(p: int, n: int, x0: int = 3):
     b = a.copy()
     c = (a.astype(np.uint64) * a % p).astype(np.uint32)
     return selectors, copies, a, b, c
+
+
+def bn254_mul_circuit(n: int, seed: int = 11):
+    """The BN254 multiplication-gate circuit of the JAX package's BN254
+    bench and tests: n gates c_i = a_i * b_i (q_m = 1, q_o = -1), the
+    identity copy permutation, a and b drawn from a seeded numpy
+    generator. Returns (selectors (5, n, 16), copies (3, n, 2), a, b, c
+    as (n, 16)) standard-form 16-bit-word arrays."""
+    r = BN254_FR.p
+    rng = np.random.default_rng(seed)
+    a = [int.from_bytes(rng.bytes(31), "little") % r for _ in range(n)]
+    b = [int.from_bytes(rng.bytes(31), "little") % r for _ in range(n)]
+    c = [x * y % r for x, y in zip(a, b)]
+    sel = np.zeros((5, n, 16), dtype=np.uint32)
+    sel[3] = words_vec([1] * n)                     # q_m = 1
+    sel[2] = words_vec([r - 1] * n)                 # q_o = -1
+    copies = np.stack([
+        np.stack([np.full(n, t), np.arange(1, n + 1)], axis=-1)
+        for t in range(3)]).astype(np.int32)
+    return sel, copies, words_vec(a), words_vec(b), words_vec(c)
+
+
+def words_vec(vals) -> np.ndarray:
+    """Python ints -> (len, 16) standard-form 16-bit words (uint32)."""
+    return np.array([[(int(v) >> (16 * k)) & 0xFFFF for k in range(16)]
+                     for v in vals], dtype=np.uint32).reshape(-1, 16)
+
+
+def from_words(w) -> int:
+    """16-bit words (any integer array or tensor) -> Python int."""
+    v = 0
+    for word in reversed([int(x) for x in np.asarray(w).reshape(-1)]):
+        v = (v << 16) | word
+    return v

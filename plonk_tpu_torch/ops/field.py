@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from plonk_tpu.utils.params import FieldParams
+from ..utils.params import FieldParams
 
 I64 = torch.int64
 _M32 = 0xFFFFFFFF

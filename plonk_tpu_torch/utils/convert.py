@@ -12,9 +12,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import plonk_bn254 as PB
 from ..models.plonk import POINT_FIELDS, SCALAR_FIELDS, Proof
 from ..models.srs import SRS
 from ..ops.curve import G1, G2
+from ..ops.bigcurve import BigFixedBaseTable
 from ..ops.fixed_base import FixedBaseTable
 
 
@@ -71,3 +73,54 @@ def proof_to_numpy(proof: Proof) -> Proof:
     for name in SCALAR_FIELDS:
         fields[name] = getattr(proof, name).cpu().numpy().astype(np.uint32)
     return Proof(**fields)
+
+
+# ---- BN254 ----
+
+def bn254_srs_from_numpy(x, y, inf, g2_1x, g2_1y, g2_sx, g2_sy, length,
+                         device):
+    """BN254SRS from the arrays of the JAX package's SRS (the
+    `bn254_srs_n{n}_s{secret}.npz` layout: G1 x/y (L, 16) Montgomery
+    words, inf (L,), each G2 coordinate an Fq2 as a (2, 16) array)."""
+    return PB.BN254SRS(g1s=PB.BigG1Affine(_words(x, device), _words(y, device),
+                                          _flags(inf, device)),
+                       g2_1x=_words(g2_1x, device),
+                       g2_1y=_words(g2_1y, device),
+                       g2_sx=_words(g2_sx, device),
+                       g2_sy=_words(g2_sy, device), length=int(length))
+
+
+def big_table_from_numpy(x, y, inf, window_bits: int, device):
+    """BigFixedBaseTable from (W, nb, L, 16) / (W, nb, L) arrays (the
+    `bn254_fbtbl_*.npz` x/y/inf)."""
+    return BigFixedBaseTable(x=_words(x, device), y=_words(y, device),
+                             inf=_flags(inf, device),
+                             window_bits=int(window_bits))
+
+
+def bn254_proof_from_numpy(proof, device):
+    """BN254Proof of tensors from any object with its field names whose
+    points have .x/.y/.inf (a JAX BN254Proof, or bn254_proof_to_numpy's
+    output)."""
+    fields = {}
+    for name in PB.POINT_FIELDS:
+        pt = getattr(proof, name)
+        fields[name] = PB.BigG1Affine(_words(pt.x, device),
+                                      _words(pt.y, device),
+                                      _flags(pt.inf, device))
+    for name in PB.SCALAR_FIELDS:
+        fields[name] = _words(getattr(proof, name), device)
+    return PB.BN254Proof(**fields)
+
+
+def bn254_proof_to_numpy(proof):
+    """BN254Proof of numpy arrays in the JAX package's dtypes."""
+    u32 = lambda t: t.cpu().numpy().astype(np.uint32)
+    fields = {}
+    for name in PB.POINT_FIELDS:
+        pt = getattr(proof, name)
+        fields[name] = PB.BigG1Affine(u32(pt.x), u32(pt.y),
+                                      pt.inf.cpu().numpy().astype(bool))
+    for name in PB.SCALAR_FIELDS:
+        fields[name] = u32(getattr(proof, name))
+    return PB.BN254Proof(**fields)

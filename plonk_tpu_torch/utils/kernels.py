@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "plonk_tpu_torch")
@@ -32,6 +34,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 
+
+class BigFieldArg(ctypes.Structure):
+    """csrc/bigmont.cuh BigField, passed by value: the modulus as eight
+    32-bit limbs and -p^-1 mod 2^32."""
+    _fields_ = [("p", ctypes.c_uint32 * 8), ("np", ctypes.c_uint32)]
+
+
+class U256Arg(ctypes.Structure):
+    """csrc/bigmont.cuh U256: a 256-bit value as eight 32-bit limbs."""
+    _fields_ = [("v", ctypes.c_uint32 * 8)]
+
+
+def _limbs32(v: int):
+    return (ctypes.c_uint32 * 8)(*[(v >> (32 * k)) & 0xFFFFFFFF
+                                   for k in range(8)])
+
+
+def big_field_arg(p: int) -> BigFieldArg:
+    return BigFieldArg(_limbs32(p), (-pow(p, -1, 1 << 32)) % (1 << 32))
+
+
+def u256_arg(v: int) -> U256Arg:
+    return U256Arg(_limbs32(v))
+
+
 # C signature of every entry point: name -> argtypes (all return int, the
 # cudaError_t of the launch)
 _SIGNATURES = {
@@ -41,7 +68,26 @@ _SIGNATURES = {
     # c8, partials, n_tiles, points_per_thread, out, stream
     "commit_many_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
                            _U, _U, _U, _P, _I, _I, _P, _P],
+    # y, tw, out, R, C, S, dif, field, scale, scaled, stream
+    "big_row_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg, _I,
+                       _P],
+    # digits, tx, ty, B, W, nb, L, field, one, partials, n_tiles, ppt,
+    # out, stream
+    "big_commit_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg,
+                          _P, _I, _I, _P, _P],
 }
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    CUDA card. There is no fallback: without CUDA the default raises, and
+    a caller passes device="cpu" to run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device visible to torch; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def count(name: str) -> None:
@@ -65,18 +111,41 @@ def _stale() -> bool:
 
 
 def build() -> str:
-    """Compile every csrc/*.cu into the shared library; returns the
-    compiler's output (ptxas register and shared-memory report)."""
+    """Compile every csrc/*.cu into the shared library: one nvcc per
+    source, all started together, then one link. Returns the compilers'
+    output (the ptxas register and shared-memory report)."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp] + _sources()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return res.stdout + res.stderr
+    tag = os.getpid()
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}.tmp"
+        res = subprocess.run([nvcc, "-gencode", ARCH, "-shared", "-o", tmp]
+                             + objs, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(logs)
 
 
 def library() -> ctypes.CDLL:

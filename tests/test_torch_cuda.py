@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from plonk_tpu.utils.params import SCALED_CURVE, SCALED_FQ, SCALED_FR
+from plonk_tpu_torch.utils.params import SCALED_CURVE, SCALED_FQ, SCALED_FR
 from plonk_tpu_torch.models import plonk_scaled as PS
 from plonk_tpu_torch.models.plonk import POINT_FIELDS, SCALAR_FIELDS
 from plonk_tpu_torch.models.synthetic import square_chain_circuit
@@ -106,3 +106,93 @@ def test_proof_on_cuda_matches_cpu(dev):
         assert int(getattr(proofs[0], name)) == int(getattr(proofs[1],
                                                             name)), name
     assert int(proofs[1].r_z) == 91913729
+
+
+# ---- BN254: K3 (16-limb row NTT) and K4 (16-limb fixed-base commit) ----
+
+def _big_words(F, shape, seed):
+    rng = np.random.default_rng(seed)
+    vals = np.array([int.from_bytes(rng.bytes(32), "little") % F.p
+                     for _ in range(int(np.prod(shape)))], dtype=object)
+    return torch.as_tensor(F.encode_host(vals.reshape(shape)))
+
+
+@pytest.mark.parametrize("R,C,dif,scaled", [(1280, 128, True, False),
+                                            (128, 128, False, True),
+                                            (5, 4, True, False),
+                                            (3, 1024, False, True)])
+def test_big_row_kernel_matches_plain(dev, R, C, dif, scaled):
+    from plonk_tpu_torch.ops import bigntt as BN
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    from plonk_tpu_torch.utils.params import BN254_FR
+    F = BigMontField(BN254_FR)
+    w = BN254_FR.root_of_unity(C)
+    y = _big_words(F, (R, C), R + C)
+    scale = 12345 if scaled else None
+    tw = torch.as_tensor(BN._row_tables(F, w, C))
+    want = BN.big_row_pass_plain(
+        F, y, tw, dif, None if scale is None else F.const(scale))
+    before = kernels.LAUNCHES["big_row"]
+    got = BN.big_row_pass(F, y.to(dev), w, dif, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_row"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_big_commit_kernel_matches_plain(dev):
+    from plonk_tpu_torch.ops import bigcommit as BK
+    from plonk_tpu_torch.ops import bigcurve as BC
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    from plonk_tpu_torch.utils.params import BN254_FR
+    F = BigMontField(BC.BN254_FQ)
+    L, B = 40, 3
+    rng = np.random.default_rng(5)
+    # repeated, opposite and infinity bases exercise every case of the
+    # complete additions
+    ks = [int(k) for k in rng.integers(1, 20, size=L)]
+    order = BN254_FR.p
+    ks[1::3] = [order - k for k in ks[1::3]]
+    ks[4] = 0
+    g = BC.bn254_generator(F, (L,), dev)
+    bits = torch.as_tensor(np.stack([BC.scalar_to_bits(k, 254) for k in ks]))
+    pts = BC.big_jac_mul(F, g, bits, 254)
+    tbl = BC.build_big_table(F, pts, 4, 254)
+    sc = rng.integers(0, 1 << 16, size=(B, L, 16))
+    sc[..., 15] &= 0x1FFF                      # below 2^253 < r
+    sc[0, ::5] = 0
+    sc[1] = 0
+    scalars = torch.as_tensor(sc, device=dev)
+    before = kernels.LAUNCHES["big_commit"]
+    got = BC.big_to_affine(F, BK.big_commit_many(F, tbl, scalars))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_commit"] == before + 1
+    want = BC.big_to_affine(F, BK.big_commit_many_plain(F, tbl, scalars))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2][1])
+
+
+def test_bn254_proof_on_cuda_matches_cpu(dev):
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
+    sel, cp, a, b, c = bn254_mul_circuit(8)
+    ch = words_vec([111111, 222222, 333333, 444444, 555555])
+    rnd = words_vec(range(17, 26))
+    proofs = []
+    for d in ("cpu", dev):
+        ctx = PB.bn254_setup(8, secret=987654321, device=d)
+        prover = PB.make_prover_bn254(ctx, sel, cp)
+        kernels.reset_counts()
+        proof, diags = prover(a, b, c, ch, rnd)
+        assert bool(diags.all_ok())
+        if d != "cpu":
+            assert kernels.LAUNCHES["big_row"] == 4
+            assert kernels.LAUNCHES["big_commit"] == 1
+        proofs.append(proof)
+    for name in PB.POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(proofs[0], name)[k],
+                               getattr(proofs[1], name)[k].cpu()), name
+    for name in PB.SCALAR_FIELDS:
+        assert torch.equal(getattr(proofs[0], name),
+                           getattr(proofs[1], name).cpu()), name

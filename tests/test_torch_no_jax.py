@@ -1,6 +1,6 @@
 """The port never imports JAX: a fresh interpreter imports every module of
-plonk_tpu_torch, and neither `jax` nor any module of plonk_tpu other than
-the plain-dataclass `plonk_tpu.utils.params` is loaded."""
+plonk_tpu_torch, and neither `jax` nor any module of the JAX package
+`plonk_tpu` is loaded (the port keeps its own copy of what it needs)."""
 import os
 import subprocess
 import sys
@@ -16,8 +16,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or (m.startswith("plonk_tpu.") and m not in
-                 ("plonk_tpu.utils", "plonk_tpu.utils.params")))
+             or m == "plonk_tpu" or m.startswith("plonk_tpu."))
 print(len(names), bad)
 """
 
@@ -28,5 +27,5 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 25
     assert bad.strip() == "[]"

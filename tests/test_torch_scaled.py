@@ -50,7 +50,7 @@ def jax_run():
 
 @pytest.fixture(scope="module")
 def port():
-    ctx = PS.scaled_new(N)
+    ctx = PS.scaled_new(N, device="cpu")
     sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, N)
     proof, diags = PS.make_prover(ctx, sel, cp)(a, b, c, CH, RND)
     return dict(ctx=ctx, circuit=(sel, cp, a, b, c), proof=proof,
@@ -115,7 +115,8 @@ def test_srs_reference_mode_matches_jax():
     from plonk_tpu.ops.field import MontField as JMontField
     from plonk_tpu_torch.models.srs import srs_create
     Fq = MontField(SCALED_CURVE.base)
-    got = srs_create(Fq, SCALED_CURVE, 123456789, 4, mode="reference")
+    got = srs_create(Fq, SCALED_CURVE, 123456789, 4, mode="reference",
+                     device="cpu")
     want = j_srs_create(JMontField(SCALED_CURVE.base), SCALED_CURVE,
                         123456789, 4, mode="reference")
     assert bool(got.g1s.inf.all()) and got.length == 5
