@@ -42,12 +42,25 @@ which the JAX package configures its BN254 prover:
      torch.profiler (so the idle share), verify, each kernel against its
      plain version, peak memory.
 
+Then the scaled prover's other prims at 2^16 gates, on the context of
+phases 4-7:
+ 14. K5 (full-row transform), K6 (one-pass four-step transform) and K7
+     (modular matmul) against their plain versions, word-equal, at the
+     shapes of the 2^18 coset transforms, each call one launch;
+ 15. make_prover (precompute_circuit) and a proof under fused_prims,
+     onepass_prims and mxu2_prims: launches counted for each, diagnostics,
+     the proof equal to the default prims' proof of phase 6;
+ 16. proofs/s of the four prims in turns, each kernel against its plain
+     version.
+
 Any failure raises and exits non-zero before the result line. The last
 two lines are a JSON object of the kernels (with each one's bound: the
-larger of its bytes over 3.35 TB/s and its 32-bit multiply-adds over
-16.75 T/s, the H100's IMAD rate of 64 per SM per clock at 1.98 GHz; the
-bytes are those of the values, 4 per 31-bit word and 32 per BN254
-element, whatever the port stores them in) and the result JSON object.
+larger of its bytes over 3.35 TB/s and its operations over the card's
+rate for them, 32-bit multiply-adds at 16.75 T/s, the H100's IMAD rate of
+64 per SM per clock at 1.98 GHz, and K7's 8-bit limb products at the
+1979 T/s of the int8 tensor cores; the bytes are those of the values, 4
+per 31-bit word, 1 per 7-bit limb and 32 per BN254 element, whatever the
+port stores them in) and the result JSON object.
 """
 from __future__ import annotations
 
@@ -71,6 +84,8 @@ from plonk_tpu_torch.ops import bigcurve as BC
 from plonk_tpu_torch.ops import bigntt as BN
 from plonk_tpu_torch.ops import commit as CM
 from plonk_tpu_torch.ops import curve as C
+from plonk_tpu_torch.ops import fused_ntt as FN
+from plonk_tpu_torch.ops import mxu_ntt as MX
 from plonk_tpu_torch.ops import ntt as N
 from plonk_tpu_torch.ops import row_stages as RS
 from plonk_tpu_torch.ops.bigfield import BigMontField
@@ -104,8 +119,24 @@ BN254_KERNELS = {
                        source="plonk_tpu_torch/csrc/big_commit.cu",
                        replaces="plonk_tpu/ops/pallas_bigmsm.py:423"),
 }
+PRIMS_KERNELS = {
+    "row_transform": dict(route="cuda",
+                          source="plonk_tpu_torch/csrc/row_transform.cu",
+                          replaces="plonk_tpu/ops/pallas_ntt.py:144"),
+    "onepass_ntt": dict(route="cuda",
+                        source="plonk_tpu_torch/csrc/onepass_ntt.cu",
+                        replaces="plonk_tpu/ops/fused_ntt.py:171"),
+    "mont_matmul": dict(route="cuda",
+                        source="plonk_tpu_torch/csrc/mont_matmul.cu",
+                        replaces="plonk_tpu/ops/pallas_mxu_ntt.py:63"),
+}
+# prims -> (its kernel, launches per proof, launches in precompute_circuit)
+PRIMS = {"fused": ("row_transform", 4, 2), "onepass": ("onepass_ntt", 2, 1),
+         "mxu2": ("mont_matmul", 4, 2)}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 IMAD_PER_S = 132 * 64 * 1.98e9  # 32-bit multiply-adds: 64/SM/clock
+INT8_OPS_PER_S = 1979e12        # int8 tensor cores, dense (2 per MAC)
+QUEUE_AHEAD_CYCLES = 100_000_000  # ~50 ms of device delay before timing
 N_BN = 1 << 12
 N_BN_SMALL = 8
 BN_SECRET = 987654321
@@ -150,18 +181,59 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of fn() over reps launches after two warm-ups."""
+def cuda_ms(fn, reps: int = 10, queue_ahead: bool = False) -> float:
+    """Mean time of fn() over reps back-to-back calls, by CUDA events,
+    after two warm-ups. With queue_ahead a device-side delay is queued
+    first, so that the host has enqueued every call before the device
+    reaches them and the events time the device work alone; without it a
+    call shorter than its own enqueue on the host is timed at the host's
+    rate."""
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20):
+    """(device events per call, their mean duration per call in ms or
+    None if there were none) of fn() under torch.profiler, after one
+    warm-up: a second reading of a kernel's device time, which counts only
+    the launches the profiler recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = trace_device_events(prof)
+    return (len(events) / reps,
+            sum(us for _, us in events) / reps / 1e3 if events else None)
+
+
+def kernel_times(kern, plain, reps: int = 100, plain_reps: int = 3):
+    """(kernel ms by CUDA events over `reps` calls queued behind a device
+    delay, plain ms by CUDA events over `plain_reps` back-to-back calls,
+    the kernel's torch.profiler reading (events per call, ms))."""
+    return (cuda_ms(kern, reps=reps, queue_ahead=True),
+            cuda_ms(plain, reps=plain_reps), device_ms(kern))
+
+
+def print_kernel_times(kms: dict) -> None:
+    for key, (k, pl, (n_ev, kd)) in kms.items():
+        prof = "none" if kd is None else f"{kd:.6f} ms"
+        print(f"{key}: kernel {k:.6f} ms (CUDA events, queued ahead); "
+              f"torch.profiler {n_ev:.2f} device events and {prof} per "
+              f"call; plain {pl:.6f} ms")
 
 
 def wall(fn):
@@ -235,6 +307,21 @@ def staged_proofs(mod, prove, prims, call, reps: int):
 DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+def trace_device_events(prof) -> list:
+    """(name, microseconds) of each device event of a finished
+    torch.profiler run, read from the Chrome trace it exports."""
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    path = os.path.join(kernels.BUILD_DIR, "profile_trace.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return [(e["name"], float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_KINDS]
+
+
 def profiled_proofs(run, reps: int):
     """`reps` calls run(rep) under torch.profiler, recording device
     activity only. Returns (device events per call, device microseconds
@@ -252,21 +339,12 @@ def profiled_proofs(run, reps: int):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
     t = time.perf_counter()
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    path = os.path.join(kernels.BUILD_DIR, "profile_trace.json")
-    prof.export_chrome_trace(path)
-    try:
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
+    events = trace_device_events(prof)
     print(f"trace export and parse {time.perf_counter() - t:.3f} s")
-    by_name, n_dev = collections.Counter(), 0
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_KINDS:
-            n_dev += 1
-            by_name[e["name"]] += float(e["dur"])
-    return (n_dev / reps, sum(by_name.values()) / reps, wall_s / reps,
+    by_name = collections.Counter()
+    for name, us in events:
+        by_name[name] += us
+    return (len(events) / reps, sum(by_name.values()) / reps, wall_s / reps,
             by_name.most_common(6))
 
 
@@ -331,14 +409,38 @@ def selected_entries(digits: torch.Tensor, nb: int) -> int:
     return int(hit[:, 1:].sum())
 
 
-def row_stages_bound(y, intra):
-    """K1's least time: rows of 31-bit words read and written once, the
-    stage table read once; three 32-bit multiplies per Montgomery
-    product, C/2 products per stage and row."""
-    R, C = y.shape
+def row_bound(R: int, C: int):
+    """K1's and K5's least time: rows of 31-bit words read and written
+    once, the (log2 C, C) stage table read once; three 32-bit multiplies
+    per Montgomery product, C/2 products per stage and row."""
     S = C.bit_length() - 1
-    return bound_ms((2 * R * C + intra.numel()) * WORD_BYTES,
-                    R * C // 2 * S * 3)
+    return bound_ms((2 * R * C + S * C) * WORD_BYTES, R * C // 2 * S * 3)
+
+
+def onepass_bound(nb: int, n1: int, n2: int, scaled: bool):
+    """K6's least time: the matrices read and written once, the two stage
+    tables and the (n1, n2) twiddle read once; three 32-bit multiplies per
+    Montgomery product: n1*n2/2 per stage, one per word for the twiddle
+    and one more for the 1/n scale."""
+    S1, S2 = n1.bit_length() - 1, n2.bit_length() - 1
+    words = 2 * nb * n1 * n2 + S1 * n1 + n1 * n2 + S2 * n2
+    prods = nb * (n1 * n2 // 2 * (S1 + S2) + n1 * n2 * (2 if scaled else 1))
+    return bound_ms(words * WORD_BYTES, prods * 3)
+
+
+def mont_matmul_bound(R: int, C: int, K: int, L: int, T: int):
+    """K7's least time: X (R, C) and the (T, K) twiddle read once as
+    31-bit words, the (L, C, K) limb planes once at a byte per limb, the
+    (R, K) result written once; the R*K*C*L^2 products of 7-bit limbs on
+    the int8 tensor cores, the card's fastest exact route. Returns
+    (bound, bytes or operations, the time of the R*K*C 32x32->64-bit
+    products as two 32-bit multiply-adds each at the IMAD rate, ms)."""
+    n_bytes = (R * C + T * K + R * K) * WORD_BYTES + L * C * K
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 2 * R * K * C * L * L / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            R * K * C * 2 / IMAD_PER_S * 1e3)
 
 
 def commit_bound(table, scalars):
@@ -544,28 +646,156 @@ def bn254_phases(dev, card: str, profile: bool):
         print(f"BN254 verify split: G1 algebra {pts_s:.3f} s, pairing "
               f"checks {pair_s:.3f} s")
     for name, (y, tw, w, dif, scale, sc_) in k3_inputs.items():
-        k = cuda_ms(lambda: BN.big_row_pass(Fr, y, w, dif, scale), reps=100)
-        pl = cuda_ms(lambda: BN.big_row_pass_plain(Fr, y, tw, dif, sc_),
-                     reps=3)
-        kms[f"big_row {name}"] = (k, pl)
-    k = cuda_ms(lambda: BK.big_commit_many(Fq, tbl, scalars), reps=50)
-    kms[f"big_commit B=9 L={L}"] = (k, k4_plain_s * 1e3)
+        kms[f"big_row {name}"] = kernel_times(
+            lambda: BN.big_row_pass(Fr, y, w, dif, scale),
+            lambda: BN.big_row_pass_plain(Fr, y, tw, dif, sc_))
+    kern = lambda: BK.big_commit_many(Fq, tbl, scalars)
+    kms[f"big_commit B=9 L={L}"] = (
+        cuda_ms(kern, reps=50, queue_ahead=True), k4_plain_s * 1e3,
+        device_ms(kern))
     timings["bn_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"card: {card}")
     for key, v in timings.items():
         print(f"{key} {v:.6f}")
     print(f"K4 terms with a nonzero digit: {terms}; distinct table entries "
           f"they select: {entries}")
-    for key, (k, pl) in kms.items():
-        print(f"{key}: kernel {k:.6f} ms, plain {pl:.6f} ms")
-    first = {name: next(v for k_, v in kms.items() if k_.startswith(name))
-             for name in BN254_KERNELS}
-    entries = [dict(name=name, **meta, launches=launches.get(name, 0),
-                    max_abs_err=errs[name], ms=first[name][0],
-                    plain_ms=first[name][1], bound_ms=bounds[name][0],
-                    bound_by=bounds[name][1], library_ms=None)
-               for name, meta in BN254_KERNELS.items()]
-    return entries, timings
+    print_kernel_times(kms)
+    return kernel_entries(BN254_KERNELS, kms, launches, errs, bounds), timings
+
+
+def kernel_entries(kernel_meta: dict, kms: dict, launches: dict,
+                   errs: dict, bounds: dict) -> list:
+    """The kernels line's entries: for each kernel, its first timed case
+    in `kms` (key "<name> <case>"), `ms` its CUDA-event time."""
+    out = []
+    for name, meta in kernel_meta.items():
+        k, pl, _ = next(v for key, v in kms.items()
+                        if key.split(" ", 1)[0] == name)
+        out.append(dict(name=name, **meta, launches=launches.get(name, 0),
+                        max_abs_err=errs[name], ms=k,
+                        plain_ms=pl, bound_ms=bounds[name][0],
+                        bound_by=bounds[name][1], library_ms=None))
+    return out
+
+
+def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
+    """Phases 14-16: the fused, onepass and mxu2 prims at 2^16 gates on the
+    scaled context `ctx`, against the default prims' `ref_proof` of the
+    same inputs (made by `ref_prover`); returns the kernel entries."""
+    Fr = ctx.Fr
+    p = Fr.p
+    m = ctx.domain8
+    n1, n2 = FN._split(m)
+    w8 = ctx.omega8()
+    w8i = pow(w8, -1, p)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randint(0, p, shape, generator=gen).to(dev)
+
+    phase("14 K5 row_transform, K6 onepass_ntt, K7 mont_matmul vs plain at "
+          "the 2^18 coset transforms' shapes")
+    cases = {}
+    # K5: the forward's first row pass over the 5-row proof stack, and the
+    # inverse's first row pass over the quotient
+    for name, R, C, w_row, dif in (
+            ("proof fwd (2560, 512) DIF", 5 * n2, n1, pow(w8, n2, p), True),
+            ("inverse (512, 512) DIT", n1, n2, pow(w8i, n1, p), False)):
+        args = (p, Fr.n_prime, rand(R, C),
+                FN._row_tables(Fr, w_row, C, dev), dif)
+        cases["row_transform", name] = (
+            lambda a=args: RS.row_transform(*a),
+            lambda a=args: RS.row_transform_plain(*a), row_bound(R, C))
+    # K6: the per-proof forward stack and the inverse of the quotient
+    for name, nb, inverse in (("proof fwd (5, 512, 512)", 5, False),
+                              ("inverse (1, 512, 512) scaled", 1, True)):
+        wq = w8i if inverse else w8
+        args = (p, Fr.n_prime, rand(nb, n1, n2),
+                FN._row_tables(Fr, pow(wq, n2, p), n1, dev),
+                FN._tw_mat(Fr, w8, n1, n2, inverse, True, dev),
+                FN._row_tables(Fr, pow(wq, n1, p), n2, dev), inverse,
+                Fr.const(pow(m, -1, p)) if inverse else None)
+        cases["onepass_ntt", name] = (
+            lambda a=args: FN.onepass_ntt(*a),
+            lambda a=args: FN.onepass_plain(*a),
+            onepass_bound(nb, n1, n2, inverse))
+    # K7: the forward's first product (twiddle fused) over the proof stack,
+    # and the inverse's first product; L = 4 limb planes for the 27-bit r
+    L = MX._n_limbs(p)
+    for name, R, C, w_mat, tw in (
+            (f"proof fwd (2560, 512) x ({L}, 512, 512) with twiddle",
+             5 * n2, n1, pow(w8, n2, p),
+             MX._tw_on(Fr, w8, n1, n2, False, dev)),
+            (f"inverse (512, 512) x ({L}, 512, 512)", n1, n2,
+             pow(w8i, n1, p), None)):
+        limbs = MX._limbs_on(p, w_mat, C, dev)
+        args = (Fr, rand(R, C), limbs, tw)
+        K = limbs.shape[2]
+        cases["mont_matmul", name] = (
+            lambda a=args: MX.mont_matmul(*a),
+            lambda a=args: MX._mont_mat_transform(*a),
+            mont_matmul_bound(R, C, K, L, 0 if tw is None else tw.shape[0]))
+    errs, bounds = {}, {}
+    for (kname, name), (kern, plain, bnd) in cases.items():
+        before = kernels.LAUNCHES[kname]
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[kname] == before + 1,
+              f"{kname} {name}: one launch per call")
+        err = int((got - want).abs().max())
+        print(f"{kname} {name}: max_abs_err {err}")
+        check(err == 0, f"{kname} word-equal at {name}")
+        errs[kname] = max(errs.get(kname, 0), err)
+        bounds.setdefault(kname, bnd)
+
+    phase("15 precompute_circuit and a 2^16 proof under the fused, onepass "
+          "and mxu2 prims")
+    sel, cp, a, b, c = circuit
+    provers = {"default": ref_prover}
+    launches = {}
+    for name, (kname, per_proof, per_pre) in PRIMS.items():
+        kernels.reset_counts()
+        prover, make_s = wall(lambda: PS.make_prover(
+            ctx, sel, cp, prims=getattr(PS, f"{name}_prims")()))
+        pre = dict(kernels.LAUNCHES)
+        kernels.reset_counts()
+        (proof, diags), first_s = wall(lambda: prover(a, b, c, CH, RND))
+        counts = dict(kernels.LAUNCHES)
+        print(f"{name}_prims: make_prover {make_s:.3f} s, launches {pre}; "
+              f"first proof {first_s:.3f} s, launches {counts}")
+        check(pre == {"row_stages": 1, kname: per_pre},
+              f"{name} precompute launches")
+        check(counts == {"row_stages": 2, kname: per_proof, "commit_many": 1},
+              f"{name} proof launches")
+        check(bool(diags.all_ok()), f"{name} 2^16 diagnostics {diags}")
+        check(proofs_equal(proof, ref_proof),
+              f"{name} proof equals the default prims' proof")
+        launches[kname] = counts[kname]
+        provers[name] = prover
+    print("each prims' 2^16 proof passes diags.all_ok() and equals the "
+          "default prims' proof")
+
+    phase("16 proofs/s of the four prims in turns, kernel times")
+    total = collections.Counter()
+    for rep in range(PROOF_REPS):
+        rnd = [v + 50 + 9 * rep for v in RND]
+        for name, prover in provers.items():
+            (_, d), sec = wall(lambda: prover(a, b, c, CH, rnd))
+            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
+            total[name] += sec
+    kms = {f"{kname} {name}": kernel_times(kern, plain)
+           for (kname, name), (kern, plain, _) in cases.items()}
+    print(f"card: {card}")
+    for name in provers:
+        print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
+              f"({PROOF_REPS} synchronised proofs, in turns)")
+    print_kernel_times(kms)
+    for (kname, name), (_, _, bnd) in cases.items():
+        print(f"{kname} {name}: bound {bnd[0]:.6f} ms ({bnd[1]})")
+    print(f"mont_matmul at the IMAD rate (32x32->64 products): "
+          f"{bounds['mont_matmul'][2]:.6f} ms")
+    return kernel_entries(PRIMS_KERNELS, kms, launches, errs, bounds)
 
 
 def main() -> None:
@@ -715,36 +945,32 @@ def main() -> None:
     timings["proofs_per_s"] = PROOF_REPS / (time.perf_counter() - t)
     kms = {}
     for name, (y, intra) in k1_inputs.items():
-        k = cuda_ms(lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra),
-                    reps=100)
-        pl = cuda_ms(lambda: RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra))
-        kms[f"row_stages {name}"] = (k, pl)
-    k = cuda_ms(lambda: CM.commit_many(Fq, tbl, scalars), reps=100)
-    pl = cuda_ms(lambda: CM.commit_many_plain(Fq, tbl, scalars), reps=3)
-    kms[f"commit_many B=9 L={L}"] = (k, pl)
+        kms[f"row_stages {name}"] = kernel_times(
+            lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra),
+            lambda: RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra),
+            plain_reps=10)
+    kms[f"commit_many B=9 L={L}"] = kernel_times(
+        lambda: CM.commit_many(Fq, tbl, scalars),
+        lambda: CM.commit_many_plain(Fq, tbl, scalars))
     timings["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"card: {card}")
     for key, v in timings.items():
         print(f"{key} {v:.6f}")
-    for key, (k, pl) in kms.items():
-        print(f"{key}: kernel {k:.6f} ms, plain {pl:.6f} ms")
+    print_kernel_times(kms)
     if args.profile:
         profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
                       1 / timings["proofs_per_s"])
-    first = {name: next(v for k_, v in kms.items() if k_.startswith(name))
-             for name in KERNELS}
-    bounds = {"row_stages": row_stages_bound(*next(iter(k1_inputs.values())))}
+    bounds = {"row_stages": row_bound(
+        *next(iter(k1_inputs.values()))[0].shape)}
     bounds["commit_many"], terms2, entries2 = commit_bound(tbl, scalars)
     print(f"K2 terms with a nonzero digit: {terms2}; distinct table entries "
           f"they select: {entries2}")
-    entries = [dict(name=name, **meta, launches=launches.get(name, 0),
-                    max_abs_err=errs[name], ms=first[name][0],
-                    plain_ms=first[name][1], bound_ms=bounds[name][0],
-                    bound_by=bounds[name][1], library_ms=None)
-               for name, meta in KERNELS.items()]
+    entries = kernel_entries(KERNELS, kms, launches, errs, bounds)
     bn_entries, _ = bn254_phases(dev, card, args.profile)
+    pr_entries = prims_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
+                              prover)
     check("jax" not in sys.modules, "no JAX imported")
-    print(json.dumps({"kernels": entries + bn_entries}))
+    print(json.dumps({"kernels": entries + bn_entries + pr_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

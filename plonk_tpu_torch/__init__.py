@@ -17,9 +17,11 @@ numpy `uint32` arrays from the JAX side are converted at the boundary
 
 Point-at-infinity flags are `bool` tensors. The device of the tensors
 decides where work runs: on a CUDA tensor the hand-written kernels in
-`csrc/` launch (the row-stage NTT `ops/row_stages.py`, the fixed-base
-commit `ops/commit.py`, and their 16-limb BN254 counterparts
-`ops/bigntt.py` and `ops/bigcommit.py`); on a CPU tensor their plain
+`csrc/` launch (the row-stage NTT and the full-row transform
+`ops/row_stages.py`, the one-pass four-step transform `ops/fused_ntt.py`,
+the modular matmul `ops/mxu_ntt.py`, the fixed-base commit
+`ops/commit.py`, and the 16-limb BN254 counterparts `ops/bigntt.py` and
+`ops/bigcommit.py`); on a CPU tensor their plain
 PyTorch versions run. The entry points (`scaled_new`, `srs_create`,
 `bn254_setup`) put their context on the CUDA card unless given
 `device="cpu"`.

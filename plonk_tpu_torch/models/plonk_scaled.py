@@ -1,11 +1,14 @@
 """Scaled-curve PLONK prover and verifier.
 
-Port of `plonk_tpu/models/plonk_scaled.py` (single device, default
-prims): the same 5-round protocol over the scaled pairing curve
-(r = 27*2^22 + 1, p = 18r - 1), Montgomery fields on both sides, the
-quotient computed on a 4n coset, and the nine proof commitments made in
-one batched fixed-base MSM (K2 on a CUDA device). Every transform of the
-default prims runs its intra-row stages through K1 on a CUDA device.
+Port of `plonk_tpu/models/plonk_scaled.py` (single device): the same
+5-round protocol over the scaled pairing curve (r = 27*2^22 + 1,
+p = 18r - 1), Montgomery fields on both sides, the quotient computed on a
+4n coset, and the nine proof commitments made in one batched fixed-base
+MSM (K2 on a CUDA device). The prover's transforms are pluggable
+(`ProverPrims`): the default prims run every transform's intra-row stages
+through K1; `fused_prims`, `onepass_prims` and `mxu2_prims` run the 4n
+coset transforms through K5, K6 and K7 on a CUDA device (`_auto_prims`
+picks one with PLONK_TPU_NTT). The proof is the same under every prims.
 
 Witnesses, challenges and blinding scalars enter in standard form and the
 Proof leaves in standard form; everything between is Montgomery form.
@@ -14,11 +17,14 @@ The device of the context's SRS is where a proof runs.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import fused_ntt as FN
+from ..ops import mxu_ntt as MX
 from ..ops import ntt as N
 from ..ops import poly as P
 from ..ops.commit import build_commit_table, msm_fixed_base_many_kernel
@@ -251,6 +257,56 @@ def default_prims() -> ProverPrims:
         perm8=lambda tbl: tbl)
 
 
+def fused_prims() -> ProverPrims:
+    """The 4n coset transforms as the five-step fused transform in
+    SCRAMBLED layout (two K5 row passes per call); the pointwise quotient
+    algebra is layout-agnostic, and the coset-point table rides perm8."""
+    return ProverPrims(
+        intt_n=N.intt,
+        ntt8=FN.fused_ntt,
+        intt8=FN.fused_intt,
+        grand_product=_local_grand_product,
+        commit_many=_commit_many,
+        perm8=lambda tbl: tbl[FN.scrambled_perm(len(tbl))])
+
+
+def onepass_prims() -> ProverPrims:
+    """fused_prims with each coset transform as one K6 launch."""
+    return fused_prims()._replace(ntt8=FN.fused_ntt_1k,
+                                  intt8=FN.fused_intt_1k)
+
+
+def mxu_prims() -> ProverPrims:
+    """The JAX package's plain-XLA matmul transform runs no TPU kernel and
+    is not ported (ROADMAP queue 1 item 5); mxu2_prims computes the same
+    proof through K7."""
+    raise NotImplementedError(
+        "mxu_prims is not ported yet (ROADMAP queue 1 item 5); use "
+        "mxu2_prims")
+
+
+def mxu2_prims() -> ProverPrims:
+    """The 4n coset transforms as four-step matmul transforms in the
+    transposed (mxu_perm) layout, each modular product one K7 launch."""
+    return ProverPrims(
+        intt_n=N.intt,
+        ntt8=MX.mxu2_ntt,
+        intt8=MX.mxu2_intt,
+        grand_product=_local_grand_product,
+        commit_many=_commit_many,
+        perm8=lambda tbl: tbl[MX.mxu_perm(len(tbl))])
+
+
+_PRIMS = {"blocked": default_prims, "fused": fused_prims,
+          "onepass": onepass_prims, "mxu": mxu_prims, "mxu2": mxu2_prims}
+
+
+def _auto_prims(ctx: ScaledContext) -> ProverPrims:
+    """PLONK_TPU_NTT=blocked|fused|onepass|mxu|mxu2 picks the prims; unset
+    or any other value gives the default (blocked) prims."""
+    return _PRIMS.get(os.environ.get("PLONK_TPU_NTT"), default_prims)()
+
+
 def precompute_circuit(ctx: ScaledContext, selectors, copies,
                        prims: ProverPrims | None = None) -> dict:
     """Witness- and challenge-independent circuit tables: selector/sigma
@@ -265,7 +321,7 @@ def precompute_circuit(ctx: ScaledContext, selectors, copies,
     omega = ctx.omega()
     w8 = ctx.omega8()
     if prims is None:
-        prims = default_prims()
+        prims = _auto_prims(ctx)
 
     h_std = _pow_table(r, omega, n)
     sel = Fr.encode(_as_words(selectors, dev))
@@ -528,7 +584,7 @@ def prove_scaled(ctx: ScaledContext, selectors, copies, a_w, b_w, c_w,
     computed inline (identical Proof either way)."""
     Fr = ctx.Fr
     if prims is None:
-        prims = default_prims()
+        prims = _auto_prims(ctx)
     ch = Fr.encode(_as_words(challenge, ctx.device))
     alpha, beta, gamma, z, v = (ch[i] for i in range(5))
 
@@ -566,7 +622,7 @@ def make_prover(ctx: ScaledContext, selectors, copies,
     are made once here; returns
     fn(a_w, b_w, c_w, challenge, rand9, public_inputs=None)
     -> (Proof, ScaledDiagnostics)."""
-    base = prims if prims is not None else default_prims()
+    base = prims if prims is not None else _auto_prims(ctx)
     tbl = fixed_base_table(ctx)
     pre = precompute_circuit(ctx, selectors, copies, base)
     pr = base._replace(commit_many=table_commit(ctx, tbl))

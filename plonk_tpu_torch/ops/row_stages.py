@@ -1,9 +1,13 @@
-"""K1: all intra-row butterfly stages of the blocked NTT in one pass.
+"""K1 and K5: butterfly stages along the rows of a (R, C) array, one pass.
 
-Port of `plonk_tpu/ops/pallas_ntt.py::row_stages` (TPU kernel
-`_row_stages_kernel`). The CUDA kernel is `csrc/row_stages.cu`;
-`row_stages_plain` beside it is the same function in plain PyTorch, the
-CPU path and the kernel's test oracle.
+K1 `row_stages` ports `plonk_tpu/ops/pallas_ntt.py::row_stages` (TPU
+kernel `_row_stages_kernel`): the intra-row DIT stages of the blocked NTT.
+K5 `row_transform` ports `row_transform` (TPU kernel `_full_row_kernel`):
+one complete size-C transform per row, DIF (natural -> bit-reversed) or
+DIT (bit-reversed -> natural), the row pass of `ops/fused_ntt.fused_ntt`.
+The CUDA kernels are `csrc/row_stages.cu` and `csrc/row_transform.cu`;
+`row_stages_plain` and `row_transform_plain` beside them are the same
+functions in plain PyTorch, the CPU path and the kernels' test oracles.
 """
 from __future__ import annotations
 
@@ -18,19 +22,52 @@ def row_stages_plain(p: int, n_prime: int, y: torch.Tensor,
     """All log2(C) DIT stages with distance < C on each row of y (R, C),
     partners reached by rolls along the row (the TPU kernel's lane rolls).
     tw_stack: (log2(C), C) per-stage lane twiddles (Montgomery form)."""
+    return row_transform_plain(p, n_prime, y, tw_stack, dif=False)
+
+
+def row_transform_plain(p: int, n_prime: int, y: torch.Tensor,
+                        tw_stack: torch.Tensor, dif: bool) -> torch.Tensor:
+    """One full size-C transform along the last axis of y, partners reached
+    by rolls: DIF stages half = C/2 .. 1 with (a + b, (a - b) * tw), or DIT
+    stages half = 1 .. C/2 with (a + b * tw, a - b * tw). tw_stack:
+    (log2(C), C) per-stage lane twiddles (Montgomery form)."""
     C = y.shape[-1]
     pos = torch.arange(C, device=y.device)
-    half = 1
-    for s in range(tw_stack.shape[0]):
+    S = tw_stack.shape[0]
+    for s in (reversed(range(S)) if dif else range(S)):
+        half = 1 << s
         tv = tw_stack[s]
         in_low = (pos % (2 * half)) < half
         down = torch.roll(y, -half, dims=-1)   # y[j + half] at position j
         up = torch.roll(y, half, dims=-1)      # y[j - half] at position j
-        low_new = add_mod(y, mont_mul(down, tv, p, n_prime), p)
-        high_new = sub_mod(up, mont_mul(y, tv, p, n_prime), p)
+        if dif:
+            low_new = add_mod(y, down, p)
+            high_new = mont_mul(sub_mod(up, y, p), tv, p, n_prime)
+        else:
+            low_new = add_mod(y, mont_mul(down, tv, p, n_prime), p)
+            high_new = sub_mod(up, mont_mul(y, tv, p, n_prime), p)
         y = torch.where(in_low, low_new, high_new)
-        half *= 2
     return y
+
+
+def _check_rows(name: str, y: torch.Tensor, tw_stack: torch.Tensor) -> None:
+    """The kernels' preconditions: contiguous int64 (R, C) rows and their
+    (log2 C, C) table on one CUDA device, C a power of two in [2, 1024]."""
+    if y.device.type != "cuda" or tw_stack.device != y.device:
+        raise ValueError(f"{name}: y and tw_stack must be on one CUDA device")
+    if y.dtype != torch.int64 or tw_stack.dtype != torch.int64:
+        raise TypeError(f"{name}: int64 words expected")
+    if y.dim() != 2 or not y.is_contiguous() \
+            or not tw_stack.is_contiguous():
+        raise ValueError(f"{name}: y must be a contiguous (R, C) array")
+    C = y.shape[1]
+    S = C.bit_length() - 1
+    if C & (C - 1) or not 2 <= C <= 1024:
+        raise ValueError(f"{name}: C = {C} must be a power of two in "
+                         "[2, 1024]")
+    if tuple(tw_stack.shape) != (S, C):
+        raise ValueError(f"{name}: tw_stack must be ({S}, {C}), got "
+                         f"{tuple(tw_stack.shape)}")
 
 
 def row_stages(p: int, n_prime: int, y: torch.Tensor,
@@ -40,28 +77,35 @@ def row_stages(p: int, n_prime: int, y: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches K1."""
     if y.device.type == "cpu":
         return row_stages_plain(p, n_prime, y, tw_stack)
-    if y.device.type != "cuda" or tw_stack.device != y.device:
-        raise ValueError("row_stages: y and tw_stack must be on one CUDA "
-                         "device")
-    if y.dtype != torch.int64 or tw_stack.dtype != torch.int64:
-        raise TypeError("row_stages: int64 words expected")
-    if y.dim() != 2 or not y.is_contiguous() \
-            or not tw_stack.is_contiguous():
-        raise ValueError("row_stages: y must be a contiguous (R, C) array")
+    _check_rows("row_stages", y, tw_stack)
     R, C = y.shape
-    S = C.bit_length() - 1
-    if C & (C - 1) or not 2 <= C <= 1024:
-        raise ValueError(f"row_stages: C = {C} must be a power of two "
-                         "in [2, 1024]")
-    if tuple(tw_stack.shape) != (S, C):
-        raise ValueError(f"row_stages: tw_stack must be ({S}, {C}), got "
-                         f"{tuple(tw_stack.shape)}")
     out = torch.empty_like(y)
     if R == 0:
         return out
-    lib = kernels.library()
-    err = lib.row_stages_launch(
-        y.data_ptr(), tw_stack.data_ptr(), out.data_ptr(), R, C, S, p,
-        n_prime, torch.cuda.current_stream(y.device).cuda_stream)
+    err = kernels.library().row_stages_launch(
+        y.data_ptr(), tw_stack.data_ptr(), out.data_ptr(), R, C,
+        C.bit_length() - 1, p, n_prime,
+        torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check_launch(err, "row_stages")
+    return out
+
+
+def row_transform(p: int, n_prime: int, y: torch.Tensor,
+                  tw_stack: torch.Tensor, dif: bool) -> torch.Tensor:
+    """One complete size-C transform per row of y (R, C): dif=True natural
+    -> bit-reversed, dif=False bit-reversed -> natural. tw_stack as made by
+    ops/ntt._stage_tables for n = C (Montgomery form). A CPU tensor takes
+    the plain version; a CUDA tensor launches K5."""
+    if y.device.type == "cpu":
+        return row_transform_plain(p, n_prime, y, tw_stack, dif)
+    _check_rows("row_transform", y, tw_stack)
+    R, C = y.shape
+    out = torch.empty_like(y)
+    if R == 0:
+        return out
+    err = kernels.library().row_transform_launch(
+        y.data_ptr(), tw_stack.data_ptr(), out.data_ptr(), R, C,
+        C.bit_length() - 1, int(dif), p, n_prime,
+        torch.cuda.current_stream(y.device).cuda_stream)
+    kernels.check_launch(err, "row_transform")
     return out

@@ -64,6 +64,15 @@ def u256_arg(v: int) -> U256Arg:
 _SIGNATURES = {
     # y, tw, out, R, C, S, p, n_prime, stream
     "row_stages_launch": [_P, _P, _P, _I, _I, _I, _U, _U, _P],
+    # y, tw, out, R, C, S, dif, p, n_prime, stream
+    "row_transform_launch": [_P, _P, _P, _I, _I, _I, _I, _U, _U, _P],
+    # y, tw1, twm, tw2, out, nb, n1, n2, mirror, scale, scaled, p, n_prime,
+    # stream
+    "onepass_ntt_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _U,
+                           _U, _P],
+    # x, w_limbs, tw, out, R, C, K, L, limb bits, T, p, n_prime, stream
+    "mont_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
+                           _P],
     # scalars, tx, ty, tinf, B, W, nb, L, wb, p, n_prime, one, c2, c3,
     # c8, partials, n_tiles, points_per_thread, out, stream
     "commit_many_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,

@@ -108,6 +108,103 @@ def test_proof_on_cuda_matches_cpu(dev):
     assert int(proofs[1].r_z) == 91913729
 
 
+# ---- K5 (full-row transform), K6 (one-pass four-step), K7 (matmul) ----
+
+@pytest.mark.parametrize("R,C,dif", [(8, 8, True), (3, 2, False),
+                                     (2560, 512, True), (512, 512, False),
+                                     (5, 1024, True)])
+def test_row_transform_kernel_matches_plain(dev, R, C, dif):
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    from plonk_tpu_torch.ops.row_stages import (row_transform,
+                                                row_transform_plain)
+    tw = FN._row_tables(Fr, SCALED_FR.root_of_unity(C), C, dev)
+    g = torch.Generator(device="cpu").manual_seed(R + C)
+    y = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    before = kernels.LAUNCHES["row_transform"]
+    got = row_transform(Fr.p, Fr.n_prime, y, tw, dif)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_transform"] == before + 1
+    assert torch.equal(got, row_transform_plain(Fr.p, Fr.n_prime, y, tw, dif))
+
+
+@pytest.mark.parametrize("nb,n", [(1, 64), (3, 4), (2, 1 << 11),
+                                  (5, 1 << 18), (1, 1 << 18)])
+def test_onepass_kernel_matches_plain(dev, nb, n):
+    """Each call is one K6 launch, forward and mirror, and equals the
+    plain five-step composition; the mirror undoes the forward."""
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    w = SCALED_FR.root_of_unity(n)
+    g = torch.Generator(device="cpu").manual_seed(n + nb)
+    x = torch.randint(0, Fr.p, (nb, n), generator=g).to(dev)
+    before = kernels.LAUNCHES["onepass_ntt"]
+    y = FN.fused_ntt_1k(Fr, x, w)
+    back = FN.fused_intt_1k(Fr, y, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["onepass_ntt"] == before + 2
+    n1, n2 = FN._split(n)
+    tables = (FN._row_tables(Fr, pow(w, n2, Fr.p), n1, dev),
+              FN._tw_mat(Fr, w, n1, n2, False, True, dev),
+              FN._row_tables(Fr, pow(w, n1, Fr.p), n2, dev))
+    want = FN.onepass_plain(Fr.p, Fr.n_prime, x.reshape(nb, n1, n2),
+                            *tables, False, None)
+    assert torch.equal(y, want.reshape(nb, n))
+    assert torch.equal(back, x)
+    if n <= 1 << 11:
+        assert torch.equal(y.cpu(), FN.fused_ntt(Fr, x.cpu(), w))
+
+
+@pytest.mark.parametrize("R,C,with_tw", [(24, 8, True), (40, 8, False),
+                                         (2560, 512, True),
+                                         (512, 512, False), (100, 32, True)])
+def test_mont_matmul_kernel_matches_plain(dev, R, C, with_tw):
+    from plonk_tpu_torch.ops import mxu_ntt as MX
+    limbs = MX._limbs_on(Fr.p, SCALED_FR.root_of_unity(C), C, dev)
+    g = torch.Generator(device="cpu").manual_seed(R * C)
+    x = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    T = C if R % C == 0 else R
+    tw = (torch.randint(0, Fr.p, (T, C), generator=g).to(dev) if with_tw
+          else None)
+    before = kernels.LAUNCHES["mont_matmul"]
+    got = MX.mont_matmul(Fr, x, limbs, tw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mont_matmul"] == before + 1
+    assert torch.equal(got, MX._mont_mat_transform(Fr, x, limbs, tw))
+    if R * C <= 4096:
+        assert torch.equal(got.cpu(), MX._mont_mat_transform(
+            Fr, x.cpu(), limbs.cpu(), None if tw is None else tw.cpu()))
+
+
+@pytest.mark.parametrize("prims,kernel,per_proof",
+                         [("fused", "row_transform", 4),
+                          ("onepass", "onepass_ntt", 2),
+                          ("mxu2", "mont_matmul", 4)])
+def test_proof_under_prims_on_cuda_matches_cpu(dev, prims, kernel,
+                                               per_proof):
+    n = 16
+    ch, rnd = [1111, 2222, 3333, 4444, 5555], list(range(1, 10))
+    proofs = []
+    for d in ("cpu", dev):
+        ctx = PS.scaled_new(n, device=d)
+        sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, n)
+        prover = PS.make_prover(ctx, sel, cp,
+                                prims=getattr(PS, f"{prims}_prims")())
+        kernels.reset_counts()
+        proof, diags = prover(a, b, c, ch, rnd)
+        assert bool(diags.all_ok())
+        if d != "cpu":
+            assert kernels.LAUNCHES[kernel] == per_proof
+            assert kernels.LAUNCHES["commit_many"] == 1
+        proofs.append(proof)
+    for name in POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(proofs[0], name)[k],
+                               getattr(proofs[1], name)[k].cpu()), name
+    for name in SCALAR_FIELDS:
+        assert int(getattr(proofs[0], name)) == int(getattr(proofs[1],
+                                                            name)), name
+    assert int(proofs[1].r_z) == 91913729
+
+
 # ---- BN254: K3 (16-limb row NTT) and K4 (16-limb fixed-base commit) ----
 
 def _big_words(F, shape, seed):

@@ -88,6 +88,41 @@ def test_port_proof_matches_jax_prover(jax_run, port):
     _assert_proofs_equal(proof, jax_run["proof"])
 
 
+@pytest.mark.parametrize("prims", ["fused", "onepass", "mxu2"])
+def test_port_proof_under_prims_matches_jax(jax_run, port, prims):
+    """The coset transforms through K5 (fused), K6 (onepass) or K7 (mxu2)
+    in their own layouts: the proof is JAX's (which does not depend on its
+    prims either)."""
+    ctx = port["ctx"]
+    sel, cp, a, b, c = port["circuit"]
+    prover = PS.make_prover(ctx, sel, cp,
+                            prims=getattr(PS, f"{prims}_prims")())
+    proof, diags = prover(a, b, c, CH, RND)
+    assert bool(diags.all_ok())
+    _assert_proofs_equal(proof, jax_run["proof"])
+
+
+def test_auto_prims_reads_plonk_tpu_ntt(monkeypatch):
+    ctx = object()
+    picks = {None: PS.default_prims, "blocked": PS.default_prims,
+             "other": PS.default_prims, "fused": PS.fused_prims,
+             "onepass": PS.onepass_prims, "mxu2": PS.mxu2_prims}
+    for flag, want in picks.items():
+        if flag is None:
+            monkeypatch.delenv("PLONK_TPU_NTT", raising=False)
+        else:
+            monkeypatch.setenv("PLONK_TPU_NTT", flag)
+        got = PS._auto_prims(ctx)
+        assert (got.ntt8, got.intt8) == (want().ntt8, want().intt8), flag
+    assert PS.fused_prims().ntt8 is not PS.default_prims().ntt8
+    # the plain-XLA matmul prims are not ported: raise, never fall back
+    monkeypatch.setenv("PLONK_TPU_NTT", "mxu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        PS._auto_prims(ctx)
+    with pytest.raises(NotImplementedError):
+        PS.mxu_prims()
+
+
 def test_port_proof_matches_anchors(port):
     proof, ctx = port["proof"], port["ctx"]
     assert bool(port["diags"].all_ok())
