@@ -53,7 +53,20 @@ phases 4-7:
  16. proofs/s of the four prims in turns, each kernel against its plain
      version.
 
-Any failure raises and exits non-zero before the result line. The last
+Then the mesh-sharded scaled prover at 2^16 gates (parallel/), on the
+same context, with its eight shards all on the card:
+ 17. K8 (all-gather) and K9 (all-to-all) against their plain versions,
+     word-equal, at every shape the sharded proof gives them, on one shard
+     and on odd row counts, each call one launch;
+ 18. prove_scaled with make_dist_prims on 8 shards, through K8 and K9 and
+     through plain copies: launches counted, diagnostics, the proof equal
+     to phase 6's, verify, tamper rejection;
+ 19. proofs/s of the default prims and of both sharded prims in turns,
+     K8 and K9 against their plain versions.
+
+Any failure raises and exits non-zero before the result line; so does a
+machine without CUDA, and a directory that holds the script without the
+rest of the repository. The last
 two lines are a JSON object of the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 rate for them, 32-bit multiply-adds at 16.75 T/s, the H100's IMAD rate of
@@ -75,23 +88,31 @@ import time
 import numpy as np
 import torch
 
-from plonk_tpu_torch.models import plonk_bn254 as PB
-from plonk_tpu_torch.models import plonk_scaled as PS
-from plonk_tpu_torch.models.synthetic import (bn254_mul_circuit, from_words,
-                                              square_chain_circuit, words_vec)
-from plonk_tpu_torch.ops import bigcommit as BK
-from plonk_tpu_torch.ops import bigcurve as BC
-from plonk_tpu_torch.ops import bigntt as BN
-from plonk_tpu_torch.ops import commit as CM
-from plonk_tpu_torch.ops import curve as C
-from plonk_tpu_torch.ops import fused_ntt as FN
-from plonk_tpu_torch.ops import mxu_ntt as MX
-from plonk_tpu_torch.ops import ntt as N
-from plonk_tpu_torch.ops import row_stages as RS
-from plonk_tpu_torch.ops.bigfield import BigMontField
-from plonk_tpu_torch.ops.field import MontField
-from plonk_tpu_torch.utils import kernels
-from plonk_tpu_torch.utils.params import BN254_FR
+try:
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models import plonk_scaled as PS
+    from plonk_tpu_torch.models.synthetic import (
+        bn254_mul_circuit, from_words, square_chain_circuit, words_vec)
+    from plonk_tpu_torch.ops import bigcommit as BK
+    from plonk_tpu_torch.ops import bigcurve as BC
+    from plonk_tpu_torch.ops import bigntt as BN
+    from plonk_tpu_torch.ops import commit as CM
+    from plonk_tpu_torch.ops import curve as C
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    from plonk_tpu_torch.ops import mxu_ntt as MX
+    from plonk_tpu_torch.ops import ntt as N
+    from plonk_tpu_torch.ops import row_stages as RS
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    from plonk_tpu_torch.ops.field import MontField
+    from plonk_tpu_torch.parallel import collectives as CL
+    from plonk_tpu_torch.parallel import dist_ntt as DN
+    from plonk_tpu_torch.parallel import dist_prover as DP
+    from plonk_tpu_torch.parallel import mesh as MS
+    from plonk_tpu_torch.utils import kernels
+    from plonk_tpu_torch.utils.params import BN254_FR
+except ModuleNotFoundError as exc:   # the script without the repository
+    raise SystemExit(f"chip_smoke: {exc}; run it from the root of the "
+                     "repository") from exc
 
 N_MAIN = 1 << 16
 N_SMALL = 16
@@ -137,6 +158,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 IMAD_PER_S = 132 * 64 * 1.98e9  # 32-bit multiply-adds: 64/SM/clock
 INT8_OPS_PER_S = 1979e12        # int8 tensor cores, dense (2 per MAC)
 QUEUE_AHEAD_CYCLES = 100_000_000  # ~50 ms of device delay before timing
+QUEUE_AHEAD_MS = QUEUE_AHEAD_CYCLES / 1.98e6    # at the 1.98 GHz clock
 N_BN = 1 << 12
 N_BN_SMALL = 8
 BN_SECRET = 987654321
@@ -195,11 +217,17 @@ def cuda_ms(fn, reps: int = 10, queue_ahead: bool = False) -> float:
     if queue_ahead:
         torch.cuda.synchronize()
         torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+    t = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
+    if queue_ahead and host_ms > QUEUE_AHEAD_MS:
+        print(f"  (the host took {host_ms:.3f} ms to enqueue {reps} calls, "
+              f"longer than the ~{QUEUE_AHEAD_MS:.0f} ms device delay: "
+              "this reading includes host time)")
     return start.elapsed_time(end) / reps
 
 
@@ -664,9 +692,11 @@ def bn254_phases(dev, card: str, profile: bool):
 
 
 def kernel_entries(kernel_meta: dict, kms: dict, launches: dict,
-                   errs: dict, bounds: dict) -> list:
+                   errs: dict, bounds: dict, library: dict | None = None
+                   ) -> list:
     """The kernels line's entries: for each kernel, its first timed case
-    in `kms` (key "<name> <case>"), `ms` its CUDA-event time."""
+    in `kms` (key "<name> <case>"), `ms` its CUDA-event time; `library`
+    gives the library call's time of the kernels that have one."""
     out = []
     for name, meta in kernel_meta.items():
         k, pl, _ = next(v for key, v in kms.items()
@@ -674,7 +704,8 @@ def kernel_entries(kernel_meta: dict, kms: dict, launches: dict,
         out.append(dict(name=name, **meta, launches=launches.get(name, 0),
                         max_abs_err=errs[name], ms=k,
                         plain_ms=pl, bound_ms=bounds[name][0],
-                        bound_by=bounds[name][1], library_ms=None))
+                        bound_by=bounds[name][1],
+                        library_ms=(library or {}).get(name)))
     return out
 
 
@@ -796,6 +827,190 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     print(f"mont_matmul at the IMAD rate (32x32->64 products): "
           f"{bounds['mont_matmul'][2]:.6f} ms")
     return kernel_entries(PRIMS_KERNELS, kms, launches, errs, bounds)
+
+
+D_MESH = 8
+DIST_KERNELS = {
+    "all_gather": dict(route="cuda",
+                       source="plonk_tpu_torch/csrc/collectives.cu",
+                       replaces="plonk_tpu/parallel/pallas_collectives.py:41"),
+    "all_to_all": dict(route="cuda",
+                       source="plonk_tpu_torch/csrc/collectives.cu",
+                       replaces="plonk_tpu/parallel/pallas_collectives.py:"
+                                "143"),
+}
+# launches of one prove_scaled with the sharded prims on D_MESH shards,
+# precompute inside: 3 all-to-alls per interpolation (3 of them) and 2 per
+# coset transform (3), one all-gather, one commit per shard
+DIST_LAUNCHES = {"cuda": {"all_to_all": 15, "all_gather": 1,
+                          "commit_many": D_MESH},
+                 "plain": {"commit_many": D_MESH}}
+
+
+def dist_cases(n: int, m: int):
+    """(kernel, case name, shard shape, split axis, concat axis) of every
+    exchange the sharded 2^16 proof makes on D_MESH shards: the transposes
+    of the m-point coset transforms (batches 5, 10 and none; the first is
+    the per-proof forward stack) and of the n-point interpolations
+    (batches 9, 3 and none), both ways, and the grand-product totals."""
+    cases = [("all_gather", "totals (1,)", (1,), None, None)]
+    for size, batches in ((m, (5, 10, None)), (n, (9, 3, None))):
+        r1, r2 = DN._split(size, D_MESH)
+        for b in batches:
+            lead = () if b is None else (b,)
+            k = len(lead)
+            for shape, split, concat in (
+                    (lead + (r1 // D_MESH, r2), k + 1, k),
+                    (lead + (r1, r2 // D_MESH), k, k + 1)):
+                cases.append(("all_to_all", f"{shape} split {split} concat "
+                              f"{concat}", shape, split, concat))
+    return cases
+
+
+EDGE_CASES = [  # (kernel, name, shards, shard shape, split, concat)
+    ("all_to_all", "one shard (3, 7)", 1, (3, 7), 1, 0),
+    ("all_to_all", "odd rows (3, 8, 5)", D_MESH, (3, 8, 5), 1, 2),
+    ("all_gather", "one shard (7,)", 1, (7,), None, None),
+    ("all_gather", "odd rows (3, 5)", D_MESH, (3, 5), None, None),
+]
+
+
+def exchange_bound(name: str, D: int, shard_numel: int):
+    """K8's and K9's least time: the values (4 bytes per 31-bit word, the
+    prover's data) read once and written once; no arithmetic. K9 reads and
+    writes D shards; K8 reads D shards and writes D*D."""
+    out = D * shard_numel * (D if name == "all_gather" else 1)
+    return bound_ms((D * shard_numel + out) * WORD_BYTES, 0)
+
+
+def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
+    """Phases 17-19: K8 and K9 against their plain versions, then the 2^16
+    proof under the sharded prims on D_MESH shards of the card, against
+    the default prims' `ref_proof` of phase 6 (made by `ref_prover`, with
+    verifying key `vk`); returns the kernel entries."""
+    Fr = ctx.Fr
+    sel, cp, a, b, c = circuit
+    gen = torch.Generator(device="cpu").manual_seed(17)
+
+    def shards_of(D, shape):
+        return [torch.randint(0, Fr.p, shape, generator=gen).to(dev)
+                for _ in range(D)]
+
+    def calls(name, xs, split, concat, exchange):
+        if name == "all_gather":
+            return lambda: CL.all_gather(xs, exchange)
+        return lambda: CL.all_to_all(xs, split, concat, exchange)
+
+    def exchange_only(name, xs, split, exchange):
+        """The exchange alone, without the relayout around it, into
+        destinations made once."""
+        D = len(xs)
+        if name == "all_gather":
+            dsts = [torch.empty(D * x.numel(), dtype=x.dtype, device=dev)
+                    for x in xs]
+            return lambda: CL.all_gather_into(xs, dsts, exchange)
+        srcs = [torch.movedim(x, split, 0).reshape(D, -1).contiguous()
+                for x in xs]
+        dsts = [torch.empty_like(x) for x in srcs]
+        return lambda: CL.all_to_all_into(srcs, dsts, exchange)
+
+    phase("17 K8 all_gather and K9 all_to_all vs plain at the 2^16 sharded "
+          "path's shapes")
+    errs, bounds, timed, tested = {}, {}, {}, set()
+    cases = [(k, nm, D_MESH, sh, sp, ct)
+             for k, nm, sh, sp, ct in dist_cases(ctx.n, ctx.domain8)]
+    for kname, name, D, shape, split, concat in cases + EDGE_CASES:
+        xs = shards_of(D, shape)
+        before = kernels.LAUNCHES[kname]
+        got = calls(kname, xs, split, concat, "cuda")()
+        want = calls(kname, xs, split, concat, "plain")()
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES[kname] == before + 1,
+              f"{kname} {name}: one launch per call")
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want,
+                                                           strict=True))
+        print(f"{kname} {name} on {D} shards: max_abs_err {err}")
+        check(err == 0, f"{kname} word-equal at {name}")
+        errs[kname] = max(errs.get(kname, 0), err)
+        numel = int(np.prod(shape))
+        tested.add((kname, D, numel))
+        if D == D_MESH:
+            bounds.setdefault(kname, exchange_bound(kname, D, numel))
+            timed.setdefault((kname, name), (xs, split, numel))
+
+    phase("18 a 2^16 proof under the sharded prims on 8 shards of the card")
+    mesh = MS.make_1d_mesh("sp", D_MESH, device=dev)
+    seen = set()
+    launch = CL._launch
+
+    def recorded(name, srcs, dsts, chunk_bytes):
+        seen.add((name, len(srcs), srcs[0].numel()))
+        return launch(name, srcs, dsts, chunk_bytes)
+
+    provers = {"default": lambda ch, rnd: ref_prover(a, b, c, ch, rnd)}
+    launches = {}
+    for exchange in ("cuda", "plain"):
+        prims = DP.make_dist_prims(ctx, mesh, exchange=exchange)
+        CL._launch = recorded
+        kernels.reset_counts()
+        try:
+            (proof, diags), first_s = wall(lambda: PS.prove_scaled(
+                ctx, sel, cp, a, b, c, CH, RND, prims=prims))
+        finally:
+            CL._launch = launch
+        counts = dict(kernels.LAUNCHES)
+        print(f"sharded {exchange}: prove_scaled with precompute "
+              f"{first_s:.3f} s, launches {counts}")
+        check(counts == DIST_LAUNCHES[exchange],
+              f"sharded {exchange} launches {counts}")
+        check(bool(diags.all_ok()), f"sharded {exchange} diagnostics {diags}")
+        check(proofs_equal(proof, ref_proof),
+              f"sharded {exchange} proof equals phase 6's proof")
+        if exchange == "cuda":
+            launches = counts
+            ok, verify_s = wall(lambda: PS.verify_scaled(ctx, vk, proof, CH))
+            bad = proof._replace(r_z=(proof.r_z + 1) % Fr.p)
+            rejected = not PS.verify_scaled(ctx, vk, bad, CH)
+            print(f"verify {ok} ({verify_s:.3f} s); tampered r_z rejected "
+                  f"{rejected}")
+            check(ok and rejected, "sharded proof verifies, tampered "
+                  "rejected")
+        pre = PS.precompute_circuit(ctx, sel, cp, prims)
+        provers[f"sharded-{exchange}"] = (
+            lambda ch, rnd, pr=prims, pre=pre: PS.prove_scaled(
+                ctx, sel, cp, a, b, c, ch, rnd, prims=pr, pre=pre))
+    check(seen <= tested, f"every exchange of the proof checked in phase "
+          f"17: {sorted(seen - tested)}")
+    print(f"both sharded proofs equal phase 6's proof; {len(seen)} "
+          "exchange shapes, each checked in phase 17")
+
+    phase("19 proofs/s of the default and sharded prims in turns, kernel "
+          "times")
+    total = collections.Counter()
+    for rep in range(PROOF_REPS):
+        rnd = [v + 70 + 9 * rep for v in RND]
+        for name, prover in provers.items():
+            (_, d), sec = wall(lambda: prover(CH, rnd))
+            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
+            total[name] += sec
+    kms, library = {}, {}
+    for (kname, name), (xs, split, numel) in timed.items():
+        kern = exchange_only(kname, xs, split, "cuda")
+        plain = exchange_only(kname, xs, split, "plain")
+        kms[f"{kname} {name}"] = kernel_times(kern, plain)
+        # its 8 PyTorch launches per destination take the host ~0.5-1.5 ms
+        # per call: 20 calls fit in the device delay
+        lib = cuda_ms(plain, reps=20, queue_ahead=True)
+        library.setdefault(kname, lib)
+        print(f"{kname} {name}: plain exchange {lib:.6f} ms (CUDA events, "
+              f"queued ahead); bound "
+              f"{exchange_bound(kname, D_MESH, numel)[0]:.9f} ms (bytes)")
+    print(f"card: {card}")
+    for name in provers:
+        print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
+              f"({PROOF_REPS} synchronised proofs, in turns)")
+    print_kernel_times(kms)
+    return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds, library)
 
 
 def main() -> None:
@@ -969,8 +1184,12 @@ def main() -> None:
     bn_entries, _ = bn254_phases(dev, card, args.profile)
     pr_entries = prims_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                               prover)
+    dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
+                               prover, vk)
     check("jax" not in sys.modules, "no JAX imported")
-    print(json.dumps({"kernels": entries + bn_entries + pr_entries}))
+    print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
+    print(json.dumps({"kernels": entries + bn_entries + pr_entries
+                      + dist_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,10 +21,16 @@ decides where work runs: on a CUDA tensor the hand-written kernels in
 `ops/row_stages.py`, the one-pass four-step transform `ops/fused_ntt.py`,
 the modular matmul `ops/mxu_ntt.py`, the fixed-base commit
 `ops/commit.py`, and the 16-limb BN254 counterparts `ops/bigntt.py` and
-`ops/bigcommit.py`); on a CPU tensor their plain
+`ops/bigcommit.py`, and the all-gather and all-to-all of the sharded
+prover `parallel/collectives.py`); on a CPU tensor their plain
 PyTorch versions run. The entry points (`scaled_new`, `srs_create`,
-`bn254_setup`) put their context on the CUDA card unless given
-`device="cpu"`.
+`bn254_setup`, `parallel.mesh.make_1d_mesh`) put their context on the
+CUDA card unless given `device="cpu"`.
+
+The mesh-sharded scaled prover lives in `parallel/`: `mesh.py` (a
+single-controller mesh of D shards on one device), `collectives.py`,
+`dist_ntt.py` (the sharded four-step NTT), `dist_scan.py` (the sharded
+grand product) and `dist_prover.py` (`make_dist_prims`).
 
 This package imports neither `jax` nor any module of `plonk_tpu`; it
 keeps its own copy of the parameters it needs (`utils/params.py`).

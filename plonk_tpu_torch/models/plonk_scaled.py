@@ -240,11 +240,16 @@ def _prefix_prod_chunked(F, x: torch.Tensor, n_chunks: int = 1024
     return F.mul(scans, excl[None, :]).T.reshape(n)
 
 
+def _prefix_prod(F, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix product of a 1-D tensor: chunked from 4096
+    elements, the doubling scan below."""
+    return (_prefix_prod_chunked(F, x) if x.shape[-1] >= 4096
+            else P.scan(F.mul, x))
+
+
 def _local_grand_product(F, fractions: torch.Tensor) -> torch.Tensor:
-    n = fractions.shape[-1]
-    scan = (_prefix_prod_chunked(F, fractions) if n >= 4096
-            else P.scan(F.mul, fractions))
-    return torch.cat([F.ones((1,), fractions.device), scan])
+    return torch.cat([F.ones((1,), fractions.device),
+                      _prefix_prod(F, fractions)])
 
 
 def default_prims() -> ProverPrims:

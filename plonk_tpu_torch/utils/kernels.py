@@ -84,6 +84,9 @@ _SIGNATURES = {
     # out, stream
     "big_commit_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg,
                           _P, _I, _I, _P, _P],
+    # srcs[D], dsts[D] (arrays of pointers), D, chunk bytes, unit, stream
+    "all_gather_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],
+    "all_to_all_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],
 }
 
 

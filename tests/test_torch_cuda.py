@@ -293,3 +293,91 @@ def test_bn254_proof_on_cuda_matches_cpu(dev):
     for name in PB.SCALAR_FIELDS:
         assert torch.equal(getattr(proofs[0], name),
                            getattr(proofs[1], name).cpu()), name
+
+
+# ---- K8 (all-gather) and K9 (all-to-all) over shards on one card ----
+
+@pytest.mark.parametrize("D,shape", [(8, (1,)), (8, (3, 5)), (1, (7,)),
+                                     (4, (64, 512)), (16, (2, 3))])
+def test_all_gather_kernel_matches_plain(dev, D, shape):
+    from plonk_tpu_torch.parallel import collectives as CL
+    g = torch.Generator(device="cpu").manual_seed(D + len(shape))
+    shards = [torch.randint(0, 1 << 62, shape, generator=g).to(dev)
+              for _ in range(D)]
+    before = kernels.LAUNCHES["all_gather"]
+    got = CL.all_gather(shards, exchange="cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["all_gather"] == before + 1
+    want = CL.all_gather(shards, exchange="plain")
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), torch.cat(shards).cpu())
+
+
+@pytest.mark.parametrize("D,shape,split_axis,concat_axis",
+                         [(8, (9, 32, 256), 2, 1), (8, (9, 256, 32), 1, 2),
+                          (8, (5, 64, 512), 2, 1), (8, (64, 512), 1, 0),
+                          (1, (3, 7), 1, 0), (4, (3, 5, 4), 2, 1),
+                          (2, (6, 2), 1, 0)])
+def test_all_to_all_kernel_matches_plain(dev, D, shape, split_axis,
+                                         concat_axis):
+    """Shapes of the 2^16 and 2^18 paths, D = 1, odd row counts and
+    8-byte chunks (the copy falls back from 16-byte vectors)."""
+    from plonk_tpu_torch.parallel import collectives as CL
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) + D)
+    shards = [torch.randint(0, 1 << 62, shape, generator=g).to(dev)
+              for _ in range(D)]
+    before = kernels.LAUNCHES["all_to_all"]
+    got = CL.all_to_all(shards, split_axis, concat_axis, exchange="cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["all_to_all"] == before + 1
+    want = CL.all_to_all(shards, split_axis, concat_axis, exchange="plain")
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+def test_collective_kernels_refuse_bad_shards(dev):
+    from plonk_tpu_torch.parallel import collectives as CL
+    src = [torch.arange(8, device=dev), torch.arange(8, 16, device=dev)]
+    with pytest.raises(ValueError, match="overlaps"):
+        CL.all_to_all_into(src, [src[1], torch.empty_like(src[0])], "cuda")
+    with pytest.raises(ValueError, match="one device"):
+        CL.all_gather_into(src, [torch.empty(16, dtype=torch.int64),
+                                 torch.empty(16, dtype=torch.int64)], "cuda")
+
+
+def test_sharded_proof_on_cuda_matches_cpu(dev):
+    """n = 16 on 4 shards of the card, with K8/K9 and with plain copies:
+    the CPU mesh's proof (and so JAX's, r_z = 91913729), launches
+    counted."""
+    from plonk_tpu_torch.parallel import dist_prover as DP
+    from plonk_tpu_torch.parallel import mesh as MS
+    n = 16
+    ch, rnd = [1111, 2222, 3333, 4444, 5555], list(range(1, 10))
+    proofs = []
+    for d, exchange in (("cpu", None), (dev, "cuda"), (dev, "plain")):
+        ctx = PS.scaled_new(n, device=d)
+        sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, n)
+        prims = DP.make_dist_prims(ctx, MS.make_1d_mesh("sp", 4, device=d),
+                                   exchange=exchange)
+        kernels.reset_counts()
+        proof, diags = PS.prove_scaled(ctx, sel, cp, a, b, c, ch, rnd,
+                                       prims=prims)
+        assert bool(diags.all_ok())
+        if exchange == "cuda":
+            assert kernels.LAUNCHES["all_to_all"] == 15
+            assert kernels.LAUNCHES["all_gather"] == 1
+            assert kernels.LAUNCHES["commit_many"] == 4
+        elif exchange == "plain":
+            assert kernels.LAUNCHES["all_to_all"] == 0
+            assert kernels.LAUNCHES["all_gather"] == 0
+        proofs.append(proof)
+    for proof in proofs[1:]:
+        for name in POINT_FIELDS:
+            for k in range(3):
+                assert torch.equal(getattr(proofs[0], name)[k],
+                                   getattr(proof, name)[k].cpu()), name
+        for name in SCALAR_FIELDS:
+            assert int(getattr(proofs[0], name)) == int(getattr(proof,
+                                                                name)), name
+    assert int(proofs[1].r_z) == 91913729
