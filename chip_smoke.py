@@ -30,9 +30,10 @@ Then the BN254 path (models/plonk_bn254.py) at 2^12 gates, the size at
 which the JAX package configures its BN254 prover:
   9. K3 (16-limb row NTT) against its plain version, word-equal, at the
      path's three row shapes;
- 10. bn254_setup(2^12) and the window table, timed; K4 (16-limb
-     fixed-base commit) against its plain version, affine-equal, at
-     B = 9, L = 4101 and on an edge batch;
+ 10. bn254_setup(2^12) and the window table with its packed form for K4,
+     timed; K4's ptxas report (registers, spills) and SASS counts; K4
+     (16-limb fixed-base commit) against its plain version, affine-equal,
+     at B = 9, L = 4101 and on an edge batch;
  11. the n = 8 proof on the GPU against the CPU port and the JAX
      package's recorded values;
  12. the main path: make_prover_bn254, prove (K3 and K4 launches
@@ -44,9 +45,11 @@ which the JAX package configures its BN254 prover:
 
 Then the scaled prover's other prims at 2^16 gates, on the context of
 phases 4-7:
- 14. K5 (full-row transform), K6 (one-pass four-step transform) and K7
-     (modular matmul) against their plain versions, word-equal, at the
-     shapes of the 2^18 coset transforms, each call one launch;
+ 14. K7's ptxas report and its SASS (it must hold int8 tensor-core
+     instructions); K5 (full-row transform), K6 (one-pass four-step
+     transform) and K7 (modular matmul, also on words p - 1) against
+     their plain versions, word-equal, at the shapes of the 2^18 coset
+     transforms, each call one launch;
  15. make_prover (precompute_circuit) and a proof under fused_prims,
      onepass_prims and mxu2_prims: launches counted for each, diagnostics,
      the proof equal to the default prims' proof of phase 6;
@@ -71,9 +74,12 @@ two lines are a JSON object of the kernels (with each one's bound: the
 larger of its bytes over 3.35 TB/s and its operations over the card's
 rate for them, 32-bit multiply-adds at 16.75 T/s, the H100's IMAD rate of
 64 per SM per clock at 1.98 GHz, and K7's 8-bit limb products at the
-1979 T/s of the int8 tensor cores; the bytes are those of the values, 4
-per 31-bit word, 1 per 7-bit limb and 32 per BN254 element, whatever the
-port stores them in) and the result JSON object.
+1979 T/s of the int8 tensor cores; a 32x32->64-bit product counts as two
+multiply-adds, so a 31-bit Montgomery product is 4 (of m * p only the
+high half), a 256-bit CIOS product 264 and a 256-bit square 208; the bytes
+are those of the values, 4 per 31-bit word, 1 per 7-bit limb and 32 per
+BN254 element, whatever the port stores them in) and the result JSON
+object.
 """
 from __future__ import annotations
 
@@ -81,6 +87,7 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -192,6 +199,40 @@ def bound_ms(n_bytes: float, n_imad: float):
 
 
 T0 = time.perf_counter()
+BUILD_LOG = []      # the nvcc build's output (ptxas -v), set in phase 2
+
+
+def ptxas_lines(entry: str) -> list:
+    """The ptxas -v report (registers, spills, shared memory) of each
+    compiled kernel whose mangled name contains `entry`."""
+    out, keep = [], False
+    for line in BUILD_LOG[0].splitlines():
+        if "Compiling entry function" in line:
+            keep = entry in line
+        if keep:
+            out.append(line.strip())
+    return out
+
+
+def sass_opcodes(entry: str, opcodes) -> dict:
+    """How many SASS instructions of each opcode prefix the built library
+    holds in the kernels whose name contains `entry` (cuobjdump -sass)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([cuobjdump, "-sass", kernels.LIB_PATH],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    counts, keep = {op: 0 for op in opcodes}, False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            keep = entry in line
+        elif keep:
+            code = line.split("*/", 1)[-1].strip()
+            if code.startswith("@"):             # a predicate guard
+                code = code.split(None, 1)[-1]
+            for op in opcodes:
+                if code.startswith(op):
+                    counts[op] += 1
+    return counts
 
 
 def phase(name: str) -> None:
@@ -437,23 +478,36 @@ def selected_entries(digits: torch.Tensor, nb: int) -> int:
     return int(hit[:, 1:].sum())
 
 
+# 32-bit multiply-adds per 31-bit Montgomery product: t = a * b is a
+# 32x32->64 product, two (low and high half); m = lo(t) * n' one; and of
+# m * p only the high half, one (r = hi(t) + hi(m p) + (lo(t) != 0))
+MONT31_IMAD = 4
+# ... per 256-bit CIOS product: 64 + 64 wide products, two each, and the 8 m_i
+MONT256_IMAD = 264
+# ... per 256-bit square: 28 off-diagonal and 8 diagonal wide products, then
+# the reduction's 64 wide products and 8 m_i (csrc/bigmont.cuh big_sqr_lazy)
+MONT256_SQR_IMAD = 208
+
+
 def row_bound(R: int, C: int):
     """K1's and K5's least time: rows of 31-bit words read and written
-    once, the (log2 C, C) stage table read once; three 32-bit multiplies
-    per Montgomery product, C/2 products per stage and row."""
+    once, the (log2 C, C) stage table read once; MONT31_IMAD 32-bit
+    multiply-adds per Montgomery product, C/2 products per stage and
+    row."""
     S = C.bit_length() - 1
-    return bound_ms((2 * R * C + S * C) * WORD_BYTES, R * C // 2 * S * 3)
+    return bound_ms((2 * R * C + S * C) * WORD_BYTES,
+                    R * C // 2 * S * MONT31_IMAD)
 
 
 def onepass_bound(nb: int, n1: int, n2: int, scaled: bool):
     """K6's least time: the matrices read and written once, the two stage
-    tables and the (n1, n2) twiddle read once; three 32-bit multiplies per
-    Montgomery product: n1*n2/2 per stage, one per word for the twiddle
-    and one more for the 1/n scale."""
+    tables and the (n1, n2) twiddle read once; MONT31_IMAD 32-bit
+    multiply-adds per Montgomery product: n1*n2/2 per stage, one per word
+    for the twiddle and one more for the 1/n scale."""
     S1, S2 = n1.bit_length() - 1, n2.bit_length() - 1
     words = 2 * nb * n1 * n2 + S1 * n1 + n1 * n2 + S2 * n2
     prods = nb * (n1 * n2 // 2 * (S1 + S2) + n1 * n2 * (2 if scaled else 1))
-    return bound_ms(words * WORD_BYTES, prods * 3)
+    return bound_ms(words * WORD_BYTES, prods * MONT31_IMAD)
 
 
 def mont_matmul_bound(R: int, C: int, K: int, L: int, T: int):
@@ -475,8 +529,9 @@ def commit_bound(table, scalars):
     """K2's least time, counted on this run's scalars: the 31-bit scalars
     read once, each table entry that some nonzero digit selects read once
     (x, y and its infinity flag), the Jacobian output written once; one
-    complete addition (16 products of 3 multiplies) per nonzero-digit,
-    non-identity term. Returns (bound, terms, distinct entries)."""
+    complete addition (16 Montgomery products of MONT31_IMAD multiply-adds)
+    per nonzero-digit, non-identity term. Returns (bound, terms, distinct
+    entries)."""
     wb = int(table.window_bits)
     W, nb, L = table.x.shape
     digits = torch.stack([(scalars >> (w * wb)) & (nb - 1)
@@ -487,32 +542,35 @@ def commit_bound(table, scalars):
     entries = selected_entries(digits, nb)
     n_bytes = ((scalars.numel() + 3 * scalars.shape[0]) * WORD_BYTES
                + entries * (2 * WORD_BYTES + 1))
-    return bound_ms(n_bytes, terms * 16 * 3), terms, entries
+    return bound_ms(n_bytes, terms * 16 * MONT31_IMAD), terms, entries
 
 
 def big_row_bound(R: int, C: int, scaled: bool):
     """K3's least time: rows of BN254-Fr elements read and written once,
-    the C/2 distinct twiddles of each stage read once; 136 32-bit
+    the C/2 distinct twiddles of each stage read once; MONT256_IMAD 32-bit
     multiply-adds per product."""
     S = C.bit_length() - 1
     n_bytes = (2 * R * C + S * C // 2) * BIG_BYTES
     n_mul = R * (C // 2 * S + (C if scaled else 0))
-    return bound_ms(n_bytes, n_mul * 136)
+    return bound_ms(n_bytes, n_mul * MONT256_IMAD)
 
 
 def big_commit_bound(table, scalars):
     """K4's least time, counted on this run's scalars: the Fr scalars read
     once, the infinity flags of the base points read once, each table
     entry that some nonzero digit selects read once (x and y in Fq), the
-    Jacobian output written once; 11 products (136 multiply-adds each)
-    per term with a nonzero digit. Returns (bound, terms, distinct
+    Jacobian output written once; per term with a nonzero digit one mixed
+    addition, 7 products of MONT256_IMAD multiply-adds and 4 squares of
+    MONT256_SQR_IMAD (madd-2007-bl). Returns (bound, terms, distinct
     entries)."""
     digits = BK.commit_digits(table, scalars).long()          # (B, W, L)
     B, W, L = digits.shape
     terms = int((digits != 0).sum())
     entries = selected_entries(digits, table.x.shape[1])
     n_bytes = ((B * L + entries * 2 + 3 * B) * BIG_BYTES + L)
-    return bound_ms(n_bytes, terms * 11 * 136), terms, entries
+    return (bound_ms(n_bytes, terms * (7 * MONT256_IMAD
+                                       + 4 * MONT256_SQR_IMAD)),
+            terms, entries)
 
 
 def bn254_phases(dev, card: str, profile: bool):
@@ -558,15 +616,30 @@ def bn254_phases(dev, card: str, profile: bool):
         lambda: PB.bn254_setup(N_BN, secret=BN_SECRET, device=dev))
     tbl, timings["bn_table_build_s"] = wall(
         lambda: PB.bn254_fixed_base_table(ctx))
+    packed = PB.bn254_packed_table(ctx)
     L = ctx.srs.length
     print(f"bn254_setup(2^12) {timings['bn_setup_s']:.3f} s, L = {L}; "
-          f"window table {tuple(tbl.x.shape)} "
+          f"window table {tuple(tbl.x.shape)} and its packed form "
+          f"({packed.numel() * 4 / 1e6:.1f} MB) "
           f"{timings['bn_table_build_s']:.3f} s")
+    ux, uy = BK.unpack_commit_table(packed)
+    check(torch.equal(ux, tbl.x) and torch.equal(uy, tbl.y),
+          "the packed table holds the table's words")
+    del ux, uy
+    report = ptxas_lines("big_commit")
+    for line in report:
+        print("  " + line)
+    tiles = report[report.index(next(ln for ln in report
+                                     if "big_commit_tiles" in ln)):]
+    check(any("0 bytes spill stores" in ln for ln in tiles[:3]),
+          "K4's tile kernel does not spill")
+    print(f"big_commit_tiles SASS: "
+          f"{sass_opcodes('big_commit_tiles', ('IMAD', 'IADD3', 'LDG'))}")
     check(L == N_BN + 5, "SRS length n + 5")
     sc = rng.integers(0, 1 << 16, size=(9, L, 16))
     sc[..., 15] &= 0x0FFF
     scalars = torch.as_tensor(sc, device=dev)
-    got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, tbl, scalars))
+    got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, tbl, scalars, packed))
     # the plain version is launch-bound (seconds): one synchronised call,
     # timed on the host clock, is both its check and its time
     plain, k4_plain_s = wall(
@@ -591,7 +664,8 @@ def bn254_phases(dev, card: str, profile: bool):
     esc[0, ::4] = 0
     esc[1] = 0
     edge = torch.as_tensor(esc, device=dev)
-    got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, edge_tbl, edge))
+    got = BC.big_to_affine(Fq, BK.big_commit_many(
+        Fq, edge_tbl, edge, BK.pack_commit_table(edge_tbl)))
     want = BC.big_to_affine(Fq, BK.big_commit_many_plain(Fq, edge_tbl, edge))
     err2 = affine_err(got, want)
     print(f"K4 edge batch (zero rows, infinity/repeated/opposite bases): "
@@ -677,7 +751,7 @@ def bn254_phases(dev, card: str, profile: bool):
         kms[f"big_row {name}"] = kernel_times(
             lambda: BN.big_row_pass(Fr, y, w, dif, scale),
             lambda: BN.big_row_pass_plain(Fr, y, tw, dif, sc_))
-    kern = lambda: BK.big_commit_many(Fq, tbl, scalars)
+    kern = lambda: BK.big_commit_many(Fq, tbl, scalars, packed)
     kms[f"big_commit B=9 L={L}"] = (
         cuda_ms(kern, reps=50, queue_ahead=True), k4_plain_s * 1e3,
         device_ms(kern))
@@ -751,21 +825,34 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
             lambda a=args: FN.onepass_plain(*a),
             onepass_bound(nb, n1, n2, inverse))
     # K7: the forward's first product (twiddle fused) over the proof stack,
-    # and the inverse's first product; L = 4 limb planes for the 27-bit r
+    # and the inverse's first product; L = 4 limb planes for the 27-bit r;
+    # then the forward's product with every word p - 1 (its s32 buckets
+    # near their largest)
     L = MX._n_limbs(p)
-    for name, R, C, w_mat, tw in (
+    for name, R, C, w_mat, tw, x in (
             (f"proof fwd (2560, 512) x ({L}, 512, 512) with twiddle",
              5 * n2, n1, pow(w8, n2, p),
-             MX._tw_on(Fr, w8, n1, n2, False, dev)),
+             MX._tw_on(Fr, w8, n1, n2, False, dev), None),
             (f"inverse (512, 512) x ({L}, 512, 512)", n1, n2,
-             pow(w8i, n1, p), None)):
+             pow(w8i, n1, p), None, None),
+            (f"worst case (2560, 512) x ({L}, 512, 512), words p - 1",
+             5 * n2, n1, pow(w8, n2, p),
+             MX._tw_on(Fr, w8, n1, n2, False, dev),
+             torch.full((5 * n2, n1), p - 1, device=dev))):
         limbs = MX._limbs_on(p, w_mat, C, dev)
-        args = (Fr, rand(R, C), limbs, tw)
+        wk = MX._kmajor_on(p, w_mat, C, dev)
+        x = rand(R, C) if x is None else x
         K = limbs.shape[2]
         cases["mont_matmul", name] = (
-            lambda a=args: MX.mont_matmul(*a),
-            lambda a=args: MX._mont_mat_transform(*a),
+            lambda a=(Fr, x, wk, tw): MX.mont_matmul(*a),
+            lambda a=(Fr, x, limbs, tw): MX._mont_mat_transform(*a),
             mont_matmul_bound(R, C, K, L, 0 if tw is None else tw.shape[0]))
+    for line in ptxas_lines("mont_matmul"):
+        print("  " + line)
+    sass = sass_opcodes("mont_matmul", ("IGMMA", "IMAD"))
+    print(f"mont_matmul SASS: {sass}")
+    check(sass["IGMMA"] > 0, "mont_matmul issues int8 warpgroup "
+          "tensor-core instructions (IGMMA)")
     errs, bounds = {}, {}
     for (kname, name), (kern, plain, bnd) in cases.items():
         before = kernels.LAUNCHES[kname]
@@ -1036,6 +1123,7 @@ def main() -> None:
     phase("2 build")
     t = time.perf_counter()
     log = kernels.build()
+    BUILD_LOG.append(log)
     kernels.library()
     print(f"nvcc build {time.perf_counter() - t:.3f} s")
     for line in log.splitlines():

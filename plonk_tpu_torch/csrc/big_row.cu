@@ -16,11 +16,13 @@
 // are canonical, as the TPU kernel's final csub_p makes them.
 //
 // Bound on the H100: integer multiply throughput at the prover's shapes.
-// A row's C/2 * log2(C) Montgomery products are ~136 32-bit multiply-adds
-// each: 476 per element at C = 128, against 64 bytes of value per
-// element read and written (32 each way), which device memory moves in
-// less time. The port stores the 16-bit words in int64, so the kernel
-// moves 4x those bytes.
+// A row's C/2 * log2(C) Montgomery products are 264 32-bit multiply-adds
+// each (128 32x32->64 products of two each, and the 8 m_i): 924 per
+// element at C = 128, against 64 bytes of value per element read and
+// written (32 each way), which device memory moves in less time. The port
+// stores the 16-bit words in int64, so the kernel moves 4x those bytes.
+// The products are bigmont.cuh's PTX carry chains, made canonical by
+// big_mul's final subtraction.
 // Design: one block per row, C/2 threads, the row packed to eight 32-bit
 // limbs per element in shared memory (4 KB at C = 128) for all stages, one
 // butterfly per thread per stage with a barrier between stages. The TPU

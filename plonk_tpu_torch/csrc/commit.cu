@@ -10,8 +10,9 @@
 // d = 0 the identity, padded windows all identity).
 //
 // Bound on the H100: integer multiply throughput. Each (b, i, w) term costs
-// one complete Jacobian addition (~16 Montgomery products, each a 32x32->64
-// multiply plus a 32-bit multiply-low and a 64-bit multiply-add); the
+// one complete Jacobian addition (~16 Montgomery products, each 4 32-bit
+// multiply-adds: a * b as a 32x32->64 product of two, m = lo(ab) n' and
+// the high half of m p, one each); the
 // selected table entries are 9 bytes of value each (x, y, infinity flag;
 // 17 in the port's int64 storage), read once per commitment and mostly
 // from L2 after the first commitment.

@@ -33,8 +33,10 @@
 //
 // Bound on the H100: device memory. Each word is read once and written once
 // (4 bytes of value each; the port's int64 I/O moves 8), and the tables
-// once; the (S1 + S2)/2 + 1 Montgomery products per word stay below the
-// integer rate. The scratch round trip between the passes stays in L2.
+// once; the (S1 + S2)/2 + 1 Montgomery products per word, 4 32-bit
+// multiply-adds each (a * b as a 32x32->64 product of two, m = lo(ab) n'
+// and the high half of m p, one each), take a little less time at
+// (5, 512, 512). The scratch round trip between the passes stays in L2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>

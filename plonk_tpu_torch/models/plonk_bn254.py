@@ -27,7 +27,7 @@ import torch
 
 from ..ops import bigpoly as BPol
 from ..ops import bigpairing as BPair
-from ..ops.bigcommit import big_commit_many
+from ..ops.bigcommit import big_commit_many, pack_commit_table
 from ..ops.bigcurve import (BN254_FQ, BigFixedBaseTable, BigG1J,
                             affine_to_jac, big_fixed_base_mul_many,
                             big_jac_add, big_jac_mul, big_to_affine,
@@ -261,15 +261,27 @@ def _sigma_values(ctx: BN254Context, copies) -> torch.Tensor:
 def bn254_fixed_base_table(ctx: BN254Context) -> BigFixedBaseTable:
     """The SRS window table for fixed-base commitments (4-bit windows:
     64 windows x 16 buckets x L points, Montgomery affine words), built
-    once per context and cached on it (not on disk)."""
+    once per context and cached on it (not on disk). On a CUDA context its
+    packed form for K4 (`pack_commit_table`) is built with it and cached
+    beside it (`bn254_packed_table`)."""
     tbl = getattr(ctx, "_bn254_fb_table", None)
     if tbl is None:
         Fq = ctx.Fq
         g = ctx.srs.g1s
         tbl = build_big_table(Fq, affine_to_jac(Fq, g.x, g.y, g.inf),
                               COMMIT_WINDOW_BITS, FR_BITS)
+        packed = (pack_commit_table(tbl) if tbl.x.device.type == "cuda"
+                  else None)
         object.__setattr__(ctx, "_bn254_fb_table", tbl)
+        object.__setattr__(ctx, "_bn254_fb_packed", packed)
     return tbl
+
+
+def bn254_packed_table(ctx: BN254Context) -> torch.Tensor | None:
+    """K4's packed window table of a CUDA context (None on the CPU, whose
+    commitments take the plain version over the int64 table)."""
+    bn254_fixed_base_table(ctx)
+    return ctx._bn254_fb_packed
 
 
 def bn254_table_commit(ctx: BN254Context):
@@ -283,7 +295,7 @@ def bn254_table_commit(ctx: BN254Context):
         padded = torch.stack([BPol.pad_to(c, L)[..., :L, :]
                               for c in coeff_list])
         out = big_commit_many(Fq, bn254_fixed_base_table(ctx),
-                              Fr.decode(padded))
+                              Fr.decode(padded), bn254_packed_table(ctx))
         return BigG1Affine(*big_to_affine(Fq, out))
 
     return commit

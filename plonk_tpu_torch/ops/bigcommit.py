@@ -2,16 +2,20 @@
 
 Port of `plonk_tpu/ops/pallas_bigmsm.py::big_commit_many_pallas` (TPU
 kernel `_commit_kernel_v3`). `big_commit_many` launches the hand-written
-kernel `csrc/big_commit.cu` on a CUDA tensor; `big_commit_many_plain`
-beside it is the same sum in plain PyTorch (a gather of
-table[w][digit][i] and a tree of complete additions), the CPU path and the
-kernel's test oracle. Their Jacobian representatives differ; the affine
-points are equal.
+kernel `csrc/big_commit.cu` on a CUDA tensor, reading the packed table of
+`pack_commit_table` (built once per table: `models/plonk_bn254.py` caches
+it beside the window table); `big_commit_many_plain` beside it is the same
+sum in plain PyTorch over the int64 table (a gather of table[w][digit][i]
+and a tree of complete additions), the CPU path and the kernel's test
+oracle. Their Jacobian representatives differ; the affine points are
+equal.
 
-Both take the digits as the JAX wrapper makes them: window digits of the
+Both use the digits as the JAX wrapper makes them: window digits of the
 standard-form scalar words, zeroed where the base point is infinity
-(`pallas_bigmsm.py:678-679`). Table entries with digit >= 1 must be real
-points, as in the JAX kernel (true for any non-degenerate SRS).
+(`pallas_bigmsm.py:678-679`); the plain version through `commit_digits`,
+the kernel by reading each term's window from the scalar words itself.
+Table entries with digit >= 1 must be real points, as in the JAX kernel
+(true for any non-degenerate SRS).
 """
 from __future__ import annotations
 
@@ -23,8 +27,35 @@ from .bigcurve import (BigFixedBaseTable, BigG1J, _big_digits_batch,
 from .bigfield import BigMontField
 
 _THREADS = 128          # csrc/big_commit.cu THREADS
-_TERMS_PER_THREAD = 16
+_BLOCKS_PER_SM = 4      # csrc/big_commit.cu MIN_BLOCKS
 _JAC_WORDS = 24         # one Jacobian point: 3 x 8 32-bit limbs
+
+
+def pack_commit_table(table: BigFixedBaseTable) -> torch.Tensor:
+    """The window table as K4 reads it: (W, nb, L, 16) int32, the eight
+    32-bit limbs of x then the eight of y of each entry (64 contiguous
+    bytes), a quarter of the int64 words' bytes. Packed one window at a
+    time through int64 arithmetic, wrapped to int32 at the end (the CPU
+    has no uint32 `+`, `>>` or `>=`)."""
+    W, nb, L, limbs = table.x.shape
+    if limbs != 16 or table.y.shape != table.x.shape:
+        raise ValueError("pack_commit_table: (W, nb, L, 16) tables expected")
+    out = torch.empty((W, nb, L, 16), dtype=torch.int32,
+                      device=table.x.device)
+    for w in range(W):
+        v = torch.cat([table.x[w, ..., 0::2] | (table.x[w, ..., 1::2] << 16),
+                       table.y[w, ..., 0::2] | (table.y[w, ..., 1::2] << 16)],
+                      dim=-1)
+        out[w] = torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+    return out
+
+
+def unpack_commit_table(packed: torch.Tensor):
+    """(x, y) int64 16-bit words of a packed table: pack_commit_table's
+    inverse."""
+    v = packed.to(torch.int64) & 0xFFFFFFFF
+    words = torch.stack([v & 0xFFFF, v >> 16], dim=-1).flatten(-2)
+    return words[..., :16], words[..., 16:]
 
 
 def commit_digits(table: BigFixedBaseTable,
@@ -63,38 +94,62 @@ def big_commit_many_plain(F: BigMontField, table: BigFixedBaseTable,
     return big_tree_reduce(F, terms, dim=1)
 
 
+def _tiles(n_terms: int, B: int, n_sm: int):
+    """(tiles per commitment, terms per thread): about one resident wave of
+    `_BLOCKS_PER_SM` blocks per SM over the B commitments."""
+    per_b = max(1, n_sm * _BLOCKS_PER_SM // B)
+    ppt = max(1, -(-n_terms // (_THREADS * per_b)))
+    return -(-n_terms // (_THREADS * ppt)), ppt
+
+
 def big_commit_many(F: BigMontField, table: BigFixedBaseTable,
-                    scalar_words: torch.Tensor) -> BigG1J:
+                    scalar_words: torch.Tensor,
+                    packed: torch.Tensor | None = None) -> BigG1J:
     """(B, L, n_words) standard-form scalar words -> (B,) Jacobian
     commitments against the window table. A CPU tensor takes the plain
-    version; a CUDA tensor launches K4 or raises."""
+    version (`packed` unused); a CUDA tensor launches K4 on `packed`, the
+    table's `pack_commit_table`, or raises."""
     if scalar_words.device.type == "cpu":
         return big_commit_many_plain(F, table, scalar_words)
     dev = scalar_words.device
-    if dev.type != "cuda" or any(t.device != dev for t in table[:3]):
-        raise ValueError("big_commit_many: scalars and table must be on one "
+    if packed is None:
+        raise ValueError("big_commit_many: K4 reads the packed table; pass "
+                         "packed=pack_commit_table(table)")
+    if dev.type != "cuda" or packed.device != dev \
+            or table.inf.device != dev:
+        raise ValueError("big_commit_many: scalars and tables must be on one "
                          "CUDA device")
-    if table.x.dtype != torch.int64 or table.y.dtype != torch.int64:
-        raise TypeError("big_commit_many: int64 table words expected")
     W, nb, L, limbs = table.x.shape
-    if limbs != 16 or F.limbs != 16 or table.y.shape != table.x.shape:
+    if packed.dtype != torch.int32 or tuple(packed.shape) != (W, nb, L, 16) \
+            or not packed.is_contiguous():
+        raise ValueError(f"big_commit_many: packed table must be contiguous "
+                         f"int32 ({W}, {nb}, {L}, 16)")
+    if limbs != 16 or F.limbs != 16:
         raise ValueError("big_commit_many: (W, nb, L, 16) tables expected")
-    if not (table.x.is_contiguous() and table.y.is_contiguous()):
-        raise ValueError("big_commit_many: the table must be contiguous")
-    if nb != 1 << int(table.window_bits):
+    wb = int(table.window_bits)
+    if nb != 1 << wb:
         raise ValueError("big_commit_many: nb must be 2^window_bits")
-    digits = commit_digits(table, scalar_words)
-    B = digits.shape[0]
+    if scalar_words.dim() != 3 or scalar_words.shape[1] > L \
+            or (W - 1) * wb >= 16 * scalar_words.shape[2]:
+        raise ValueError(f"big_commit_many: scalars must be (B, <= {L}, "
+                         f"> {(W - 1) * wb // 16} words), got "
+                         f"{tuple(scalar_words.shape)}")
+    B, Ls, NW = scalar_words.shape
     if B < 1:
         raise ValueError("big_commit_many: no scalars")
-    n_tiles = -(-(W * L) // (_THREADS * _TERMS_PER_THREAD))
+    scal = scalar_words.to(torch.int64).contiguous()
+    base_inf = table.inf[0, 1].contiguous()
+    n_tiles, ppt = _tiles(W * L, B,
+                          torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
     partials = torch.empty((B, n_tiles, _JAC_WORDS), dtype=torch.int32,
                            device=dev)
     out = torch.empty((3, B, 16), dtype=torch.int64, device=dev)
     err = kernels.library().big_commit_launch(
-        digits.data_ptr(), table.x.data_ptr(), table.y.data_ptr(), B, W, nb,
-        L, kernels.big_field_arg(F.p), kernels.u256_arg(F.R % F.p),
-        partials.data_ptr(), n_tiles, _TERMS_PER_THREAD, out.data_ptr(),
+        scal.data_ptr(), base_inf.data_ptr(), Ls, NW, wb, packed.data_ptr(),
+        B, W, nb, L,
+        kernels.big_field_arg(F.p), kernels.u256_arg(F.R % F.p),
+        partials.data_ptr(), n_tiles, ppt, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "big_commit")
     return BigG1J(out[0], out[1], out[2])

@@ -36,9 +36,10 @@ _U = ctypes.c_uint
 
 
 class BigFieldArg(ctypes.Structure):
-    """csrc/bigmont.cuh BigField, passed by value: the modulus as eight
-    32-bit limbs and -p^-1 mod 2^32."""
-    _fields_ = [("p", ctypes.c_uint32 * 8), ("np", ctypes.c_uint32)]
+    """csrc/bigmont.cuh BigField, passed by value: the modulus and 2p as
+    eight 32-bit limbs each, and -p^-1 mod 2^32."""
+    _fields_ = [("p", ctypes.c_uint32 * 8), ("p2", ctypes.c_uint32 * 8),
+                ("np", ctypes.c_uint32)]
 
 
 class U256Arg(ctypes.Structure):
@@ -52,7 +53,8 @@ def _limbs32(v: int):
 
 
 def big_field_arg(p: int) -> BigFieldArg:
-    return BigFieldArg(_limbs32(p), (-pow(p, -1, 1 << 32)) % (1 << 32))
+    return BigFieldArg(_limbs32(p), _limbs32(2 * p),
+                       (-pow(p, -1, 1 << 32)) % (1 << 32))
 
 
 def u256_arg(v: int) -> U256Arg:
@@ -80,10 +82,10 @@ _SIGNATURES = {
     # y, tw, out, R, C, S, dif, field, scale, scaled, stream
     "big_row_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg, _I,
                        _P],
-    # digits, tx, ty, B, W, nb, L, field, one, partials, n_tiles, ppt,
-    # out, stream
-    "big_commit_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg,
-                          _P, _I, _I, _P, _P],
+    # scalar words, base infinity flags, Ls, NW, wb, packed table, B, W, nb,
+    # L, field, one, partials, n_tiles, ppt, out, stream
+    "big_commit_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                          BigFieldArg, U256Arg, _P, _I, _I, _P, _P],
     # srcs[D], dsts[D] (arrays of pointers), D, chunk bytes, unit, stream
     "all_gather_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],
     "all_to_all_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],

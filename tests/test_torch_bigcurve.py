@@ -147,6 +147,22 @@ def test_build_big_table_matches_jax(table8):
     assert np.array_equal(tbl.y.numpy(), np.asarray(jt.y).astype(np.int64))
 
 
+def test_pack_commit_table_matches_table_words(table8):
+    """K4's packed table holds the table's words (those JAX's build gives,
+    test above) as 32-bit limbs, x then y; unpacking gives them back."""
+    tbl, jt = table8
+    packed = BK.pack_commit_table(tbl)
+    assert packed.dtype == torch.int32
+    assert tuple(packed.shape) == (8, 16, 8, 16) and packed.is_contiguous()
+    limbs = packed.numpy().astype(np.uint32).astype(np.int64)
+    for half, words in ((0, np.asarray(jt.x)), (1, np.asarray(jt.y))):
+        w = words.astype(np.int64)
+        assert np.array_equal(limbs[..., 8 * half:8 * half + 8],
+                              w[..., 0::2] | (w[..., 1::2] << 16))
+    x, y = BK.unpack_commit_table(packed)
+    assert torch.equal(x, tbl.x) and torch.equal(y, tbl.y)
+
+
 def _scalars(B, L, seed):
     """(B, L, 2) 32-bit scalars as 16-bit words, lane (0, 0) zero."""
     rng = np.random.default_rng(seed)

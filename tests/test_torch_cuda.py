@@ -165,13 +165,80 @@ def test_mont_matmul_kernel_matches_plain(dev, R, C, with_tw):
     tw = (torch.randint(0, Fr.p, (T, C), generator=g).to(dev) if with_tw
           else None)
     before = kernels.LAUNCHES["mont_matmul"]
-    got = MX.mont_matmul(Fr, x, limbs, tw)
+    got = MX.mont_matmul(Fr, x, MX.kmajor_limbs(limbs), tw)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mont_matmul"] == before + 1
     assert torch.equal(got, MX._mont_mat_transform(Fr, x, limbs, tw))
     if R * C <= 4096:
         assert torch.equal(got.cpu(), MX._mont_mat_transform(
             Fr, x.cpu(), limbs.cpu(), None if tw is None else tw.cpu()))
+
+
+@pytest.mark.parametrize("R,C,K", [(100, 8, 8), (70, 32, 45),
+                                   (130, 512, 96), (72, 4096, 40),
+                                   (65, 40, 33)])
+def test_mont_matmul_kernel_tiles(dev, R, C, K):
+    """K7 with R, K and C off its 64 x 32 tile and 32-byte chunk, random
+    limb planes and a fused twiddle, through the K-major copy."""
+    from plonk_tpu_torch.ops import mxu_ntt as MX
+    g = torch.Generator(device="cpu").manual_seed(R + C + K)
+    limbs = torch.randint(0, 128, (4, C, K), generator=g,
+                          dtype=torch.int8).to(dev)
+    x = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    tw = torch.randint(0, Fr.p, (R, K), generator=g).to(dev)
+    wk = MX.kmajor_limbs(limbs)
+    before = kernels.LAUNCHES["mont_matmul"]
+    got = MX.mont_matmul(Fr, x, wk, tw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mont_matmul"] == before + 1
+    assert torch.equal(got, MX._mont_mat_transform(Fr, x, limbs, tw))
+
+
+@pytest.mark.parametrize("R,C,K", [(5, 1, 3), (70, 33, 40)])
+def test_mont_matmul_kernel_unaligned_rows(dev, R, C, K):
+    """K7 where its X rows are not 16-byte aligned (C odd, or x one word
+    into its storage), so it loads the words one by one."""
+    from plonk_tpu_torch.ops import mxu_ntt as MX
+    g = torch.Generator(device="cpu").manual_seed(R + C + K)
+    limbs = torch.randint(0, 128, (4, C, K), generator=g,
+                          dtype=torch.int8).to(dev)
+    x = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    shifted = torch.empty(R * C + 1, dtype=torch.int64,
+                          device=dev)[1:].view(R, C)
+    shifted.copy_(x)
+    for xs in (x, shifted):
+        before = kernels.LAUNCHES["mont_matmul"]
+        got = MX.mont_matmul(Fr, xs, MX.kmajor_limbs(limbs))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["mont_matmul"] == before + 1
+        assert torch.equal(got, MX._mont_mat_transform(Fr, x, limbs))
+
+
+@pytest.mark.parametrize("C", [8, 32, 512, 4096])
+def test_mont_matmul_kernel_worst_buckets(dev, C):
+    """K7's s32 buckets at their largest: every X word p - 1 against the
+    DFT matrix's planes, and every limb 127 on both sides (X words
+    2^28 - 1), which drives bucket k to min(k + 1, 7 - k, 4) * C * 127^2;
+    the wrapper refuses C > 4096, and planes not in K-major form."""
+    from plonk_tpu_torch.ops import mxu_ntt as MX
+    R = 96
+    limbs = MX._limbs_on(Fr.p, SCALED_FR.root_of_unity(C), C, dev)
+    full = torch.full((4, C, C), 127, dtype=torch.int8, device=dev)
+    for x, w in ((torch.full((R, C), Fr.p - 1, device=dev), limbs),
+                 (torch.full((R, C), (1 << 28) - 1, device=dev), full)):
+        before = kernels.LAUNCHES["mont_matmul"]
+        got = MX.mont_matmul(Fr, x, MX.kmajor_limbs(w))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["mont_matmul"] == before + 1
+        assert torch.equal(got, MX._mont_mat_transform(Fr, x, w))
+    with pytest.raises(ValueError):
+        MX.mont_matmul(Fr, torch.zeros((64, 4097), dtype=torch.int64,
+                                       device=dev),
+                       MX.kmajor_limbs(torch.zeros((4, 4097, 32),
+                                                   dtype=torch.int8,
+                                                   device=dev)))
+    with pytest.raises(TypeError):
+        MX.mont_matmul(Fr, x, limbs)
 
 
 @pytest.mark.parametrize("prims,kernel,per_proof",
@@ -236,16 +303,18 @@ def test_big_row_kernel_matches_plain(dev, R, C, dif, scaled):
     assert torch.equal(got.cpu(), want)
 
 
-def test_big_commit_kernel_matches_plain(dev):
+@pytest.mark.parametrize("B,L", [(1, 40), (3, 40), (9, 40), (9, 1000)])
+def test_big_commit_kernel_matches_plain(dev, B, L):
+    """K4 on the packed table against its plain version: B = 1 and 9
+    commitments, L not a multiple of any tile, an all-zero digit row, and
+    repeated, opposite and infinity bases (every arm of the complete
+    additions, the lazy residues' zero tests included)."""
     from plonk_tpu_torch.ops import bigcommit as BK
     from plonk_tpu_torch.ops import bigcurve as BC
     from plonk_tpu_torch.ops.bigfield import BigMontField
     from plonk_tpu_torch.utils.params import BN254_FR
     F = BigMontField(BC.BN254_FQ)
-    L, B = 40, 3
-    rng = np.random.default_rng(5)
-    # repeated, opposite and infinity bases exercise every case of the
-    # complete additions
+    rng = np.random.default_rng(5 + L)
     ks = [int(k) for k in rng.integers(1, 20, size=L)]
     order = BN254_FR.p
     ks[1::3] = [order - k for k in ks[1::3]]
@@ -254,19 +323,24 @@ def test_big_commit_kernel_matches_plain(dev):
     bits = torch.as_tensor(np.stack([BC.scalar_to_bits(k, 254) for k in ks]))
     pts = BC.big_jac_mul(F, g, bits, 254)
     tbl = BC.build_big_table(F, pts, 4, 254)
+    packed = BK.pack_commit_table(tbl)
     sc = rng.integers(0, 1 << 16, size=(B, L, 16))
     sc[..., 15] &= 0x1FFF                      # below 2^253 < r
     sc[0, ::5] = 0
-    sc[1] = 0
+    sc[-1] = 0                                 # an all-zero digit row
+    if B > 2:
+        sc[1] = sc[2]                          # equal rows, any order
     scalars = torch.as_tensor(sc, device=dev)
     before = kernels.LAUNCHES["big_commit"]
-    got = BC.big_to_affine(F, BK.big_commit_many(F, tbl, scalars))
+    got = BC.big_to_affine(F, BK.big_commit_many(F, tbl, scalars, packed))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["big_commit"] == before + 1
     want = BC.big_to_affine(F, BK.big_commit_many_plain(F, tbl, scalars))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert bool(got[2][1])
+    assert bool(got[2][-1])
+    with pytest.raises(ValueError):
+        BK.big_commit_many(F, tbl, scalars)    # K4 reads the packed table
 
 
 def test_bn254_proof_on_cuda_matches_cpu(dev):

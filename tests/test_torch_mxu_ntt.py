@@ -81,6 +81,36 @@ def test_mont_matmul_plain_matches_pallas_interpret(R, C, with_tw):
                                    torch.as_tensor(tiled)).numpy())
 
 
+@pytest.mark.parametrize("C,K", [(8, 8), (16, 16), (40, 50)])
+def test_kmajor_limbs_match_jax_planes(C, K):
+    """K7's K-major copy of the limb planes: the (L, C, K) planes
+    transposed to (L, K, C) (JAX's _dft_limbs for the DFT matrix),
+    zero-padded to multiples of 32."""
+    if K == C:
+        w = SCALED_FR.root_of_unity(C)
+        limbs = MX._dft_limbs(F.p, w, C)
+    else:
+        limbs = np.random.default_rng(C + K).integers(
+            0, 128, size=(4, C, K)).astype(np.int8)
+    km = MX.kmajor_limbs(torch.as_tensor(limbs))
+    assert (km.C, km.K) == (C, K)
+    got = km.planes.numpy()
+    assert got.dtype == np.int8
+    assert got.shape == (4, -(-K // 32) * 32, -(-C // 32) * 32)
+    np.testing.assert_array_equal(got[:, :K, :C], limbs.transpose(0, 2, 1))
+    assert not got[:, K:].any() and not got[:, :, C:].any()
+    if K == C:
+        np.testing.assert_array_equal(
+            got[:, :K, :C], JMX._dft_limbs(J.p, w, C).transpose(0, 2, 1))
+        cached = MX._kmajor_on(F.p, w, C, torch.device("cpu"))
+        assert (cached.C, cached.K) == (C, K)
+        assert torch.equal(cached.planes, torch.as_tensor(got))
+    # one form of the planes per path: the CPU's plain version takes the
+    # (L, C, K) planes and refuses the K-major copy
+    with pytest.raises(TypeError):
+        MX.mont_matmul(F, torch.zeros((1, C), dtype=torch.int64), km)
+
+
 def test_mxu_tables_match_jax():
     n1, n2 = 8, 16
     w = SCALED_FR.root_of_unity(n1 * n2)
