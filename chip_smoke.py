@@ -116,7 +116,7 @@ try:
     from plonk_tpu_torch.parallel import dist_prover as DP
     from plonk_tpu_torch.parallel import mesh as MS
     from plonk_tpu_torch.utils import kernels
-    from plonk_tpu_torch.utils.params import BN254_FR
+    from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FR
 except ModuleNotFoundError as exc:   # the script without the repository
     raise SystemExit(f"chip_smoke: {exc}; run it from the root of the "
                      "repository") from exc
@@ -545,6 +545,13 @@ def commit_bound(table, scalars):
     return bound_ms(n_bytes, terms * 16 * MONT31_IMAD), terms, entries
 
 
+def int64_floor_ms(n_words: int) -> float:
+    """The least time to move n_words of the port's int64 storage once
+    over device memory: the floor that storage puts under a kernel whose
+    values' bound is lower."""
+    return n_words * 8 / HBM_BYTES_PER_S * 1e3
+
+
 def big_row_bound(R: int, C: int, scaled: bool):
     """K3's least time: rows of BN254-Fr elements read and written once,
     the C/2 distinct twiddles of each stage read once; MONT256_IMAD 32-bit
@@ -573,19 +580,12 @@ def big_commit_bound(table, scalars):
             terms, entries)
 
 
-def bn254_phases(dev, card: str, profile: bool):
-    """The BN254 phases 9-13; returns (kernel entries for the kernels
-    line, timings)."""
-    timings, errs, kms, bounds = {}, {}, {}, {}
-    Fr = BigMontField(BN254_FR)
-    Fq = BigMontField(BC.BN254_FQ)
-
-    phase("9 K3 big_row vs plain at the 2^12 path's shapes")
+def k3_cases(Fr):
+    """K3's row shapes on the 2^12 path: name -> (R, C, root, dif, scale)."""
     m = 4 * N_BN
     n1, n2 = BN._split(m)
     w4 = BN254_FR.root_of_unity(m)
-    rng = np.random.default_rng(1)
-    k3_cases = {
+    return {
         # precompute forward (10 rows), per-proof forward (6), inverse (1)
         "precompute fwd (1280, 128)": (10 * n2, n1, pow(w4, n2, Fr.p), True,
                                        None),
@@ -594,22 +594,83 @@ def bn254_phases(dev, card: str, profile: bool):
                                                   Fr.p), False,
                                       pow(m, -1, Fr.p)),
     }
-    k3_inputs = {}
-    for name, (R, C, w, dif, scale) in k3_cases.items():
-        vals = rng.integers(0, 1 << 16, size=(R, C, 16))
-        vals[..., 15] &= 0x0FFF                     # < 2^252 < r
-        y = torch.as_tensor(vals, device=dev)
+
+
+def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
+    """(R, C, 16) words of elements below p whose rows cycle through five
+    kinds: random; zeros; p - 1; lo = hi; hi = p - lo (so that the first
+    stage's sum is exactly p). lo and hi are the first stage's partners:
+    the two halves of the row for DIF, neighbours for DIT."""
+    vals = rng.integers(0, 1 << 16, size=(R, C, 16))
+    vals[..., 15] &= 0x0FFF                          # < 2^252 < p
+    pw = np.array([(p >> (16 * k)) & 0xFFFF for k in range(16)])
+    vals[1::5] = 0
+    pm1 = pw.copy()
+    pm1[0] -= 1                                      # p is odd
+    vals[2::5] = pm1
+    v = vals.reshape(R, 2, C // 2, 16) if dif else vals.reshape(R, C // 2,
+                                                                  2, 16)
+    lo = v[:, 0] if dif else v[:, :, 0]
+    hi = v[:, 1] if dif else v[:, :, 1]
+    hi[3::5] = lo[3::5]
+    lo[4::5] |= 1                                    # nonzero, so p - lo < p
+    borrow = 0
+    for k in range(16):
+        d = pw[k] - lo[4::5, ..., k] - borrow
+        borrow = (d < 0).astype(np.int64)
+        hi[4::5, ..., k] = d + (borrow << 16)
+    return vals
+
+
+def k3_checks(dev, Fr, errs: dict, bounds: dict) -> dict:
+    """K3 against its plain version, word-equal, at each path shape on
+    random rows and on edge rows; returns each shape's random inputs for
+    timing."""
+    rng = np.random.default_rng(1)
+    inputs = {}
+    for name, (R, C, w, dif, scale) in k3_cases(Fr).items():
         tw = torch.as_tensor(BN._row_tables(Fr, w, C), device=dev)
         sc = None if scale is None else Fr.const(scale)
-        got = BN.big_row_pass(Fr, y, w, dif, scale)
-        want = BN.big_row_pass_plain(Fr, y, tw, dif, sc)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        print(f"K3 {name}: max_abs_err {err}")
-        check(err == 0, f"K3 word-equal at {name}")
-        errs["big_row"] = max(errs.get("big_row", 0), err)
-        k3_inputs[name] = (y, tw, w, dif, scale, sc)
-        bounds.setdefault("big_row", big_row_bound(R, C, scale is not None))
+        for kind in ("random", "edge rows"):
+            if kind == "random":
+                vals = rng.integers(0, 1 << 16, size=(R, C, 16))
+                vals[..., 15] &= 0x0FFF                 # < 2^252 < r
+            else:
+                vals = big_edge_rows(Fr.p, R, C, dif, rng)
+            y = torch.as_tensor(vals, device=dev)
+            got = BN.big_row_pass(Fr, y, w, dif, scale)
+            want = BN.big_row_pass_plain(Fr, y, tw, dif, sc)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            print(f"K3 {name}, {kind}: max_abs_err {err}")
+            check(err == 0, f"K3 word-equal at {name}, {kind}")
+            errs["big_row"] = max(errs.get("big_row", 0), err)
+            if kind == "random":
+                inputs[name] = (y, tw, w, dif, scale, sc)
+        bnd = big_row_bound(R, C, scale is not None)
+        bounds.setdefault("big_row", bnd)
+        print(f"K3 {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); int64 floor "
+              f"{int64_floor_ms(2 * R * C * 16):.6f} ms")
+    return inputs
+
+
+def k3_times(Fr, inputs: dict) -> dict:
+    """Each K3 shape's kernel_times."""
+    return {f"big_row {name}": kernel_times(
+        lambda a=(y, w, dif, scale): BN.big_row_pass(Fr, *a),
+        lambda a=(y, tw, dif, sc_): BN.big_row_pass_plain(Fr, *a))
+        for name, (y, tw, w, dif, scale, sc_) in inputs.items()}
+
+
+def bn254_phases(dev, card: str, profile: bool):
+    """The BN254 phases 9-13; returns (kernel entries for the kernels
+    line, timings)."""
+    timings, errs, kms, bounds = {}, {}, {}, {}
+    Fr = BigMontField(BN254_FR)
+    Fq = BigMontField(BC.BN254_FQ)
+
+    phase("9 K3 big_row vs plain at the 2^12 path's shapes")
+    k3_inputs = k3_checks(dev, Fr, errs, bounds)
 
     phase("10 bn254_setup(2^12), window table, K4 big_commit vs plain")
     ctx, timings["bn_setup_s"] = wall(
@@ -636,6 +697,7 @@ def bn254_phases(dev, card: str, profile: bool):
     print(f"big_commit_tiles SASS: "
           f"{sass_opcodes('big_commit_tiles', ('IMAD', 'IADD3', 'LDG'))}")
     check(L == N_BN + 5, "SRS length n + 5")
+    rng = np.random.default_rng(1)
     sc = rng.integers(0, 1 << 16, size=(9, L, 16))
     sc[..., 15] &= 0x0FFF
     scalars = torch.as_tensor(sc, device=dev)
@@ -747,10 +809,7 @@ def bn254_phases(dev, card: str, profile: bool):
         check(all(bool(o) for o in oks), "profiled BN254 verify accepts")
         print(f"BN254 verify split: G1 algebra {pts_s:.3f} s, pairing "
               f"checks {pair_s:.3f} s")
-    for name, (y, tw, w, dif, scale, sc_) in k3_inputs.items():
-        kms[f"big_row {name}"] = kernel_times(
-            lambda: BN.big_row_pass(Fr, y, w, dif, scale),
-            lambda: BN.big_row_pass_plain(Fr, y, tw, dif, sc_))
+    kms.update(k3_times(Fr, k3_inputs))
     kern = lambda: BK.big_commit_many(Fq, tbl, scalars, packed)
     kms[f"big_commit B=9 L={L}"] = (
         cuda_ms(kern, reps=50, queue_ahead=True), k4_plain_s * 1e3,
@@ -783,6 +842,85 @@ def kernel_entries(kernel_meta: dict, kms: dict, launches: dict,
     return out
 
 
+def onepass_args(Fr, y: torch.Tensor, w: int, inverse: bool) -> tuple:
+    """The arguments of FN.onepass_ntt for the forward (or, with
+    inverse, the scaled mirror) transform of y (nb, n1, n2), n = n1 n2 and
+    w a root of order n, as fused_ntt_1k / fused_intt_1k pass them."""
+    p = Fr.p
+    nb, n1, n2 = y.shape
+    wq = pow(w, -1, p) if inverse else w
+    dev = y.device
+    return (p, Fr.n_prime, y, FN._row_tables(Fr, pow(wq, n2, p), n1, dev),
+            FN._tw_mat(Fr, w, n1, n2, inverse, True, dev),
+            FN._row_tables(Fr, pow(wq, n1, p), n2, dev), inverse,
+            Fr.const(pow(n1 * n2, -1, p)) if inverse else None)
+
+
+def k6_edge_checks(Fr, dev) -> int:
+    """K6 against its plain version, word-equal, forward and scaled
+    mirror: at (5, 512, 512) with matrices of zeros and of p - 1 beside
+    random ones, and at nb = 1 on small shapes down to n1 = 1, all zeros
+    or all p - 1. Returns
+    the largest error (0)."""
+    p = Fr.p
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    worst = 0
+    for nb, n, fill in ((5, 1 << 18, None), (1, 2, 0), (1, 2, p - 1),
+                        (1, 8, 0), (1, 8, p - 1), (1, 64, p - 1),
+                        (1, 1 << 11, 0), (1, 1 << 11, p - 1)):
+        n1, n2 = FN._split(n)
+        y = torch.randint(0, p, (nb, n1, n2), generator=gen)
+        if fill is None:
+            y[0], y[1] = 0, p - 1
+        else:
+            y.fill_(fill)
+        for inverse in (False, True):
+            args = onepass_args(Fr, y.to(dev), Fr.params.root_of_unity(n),
+                                inverse)
+            got = FN.onepass_ntt(*args)
+            want = FN.onepass_plain(*args)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            what = "zeros and p - 1" if fill is None else f"all {fill}"
+            print(f"onepass_ntt edge ({nb}, {n1}, {n2}) "
+                  f"{'mirror' if inverse else 'forward'}, {what}: "
+                  f"max_abs_err {err}")
+            check(err == 0, f"K6 word-equal on edge input ({nb}, {n1}, {n2})")
+            worst = max(worst, err)
+    return worst
+
+
+def onepass_split(p, n_prime, y, tw1, twm, tw2, mirror, scale) -> dict:
+    """K6's passes timed apart (step 0 of its redesign): the launch with
+    only its first pass, only its grid barrier, only its second pass, and
+    whole, each by CUDA events over 100 launches queued behind a device
+    delay. The second pass alone transforms whatever the output holds.
+    These probe launches go around the wrapper and are not counted."""
+    lib = kernels.library()
+    nb, n1, n2 = y.shape
+    out = torch.empty_like(y)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+
+    def run(passes):
+        err = lib.onepass_ntt_launch(
+            y.data_ptr(), tw1.data_ptr(), twm.data_ptr(), tw2.data_ptr(),
+            out.data_ptr(), nb, n1, n2, int(mirror),
+            0 if scale is None else scale, int(scale is not None), p,
+            n_prime, passes, stream)
+        check(err == 0, f"onepass_ntt probe launch (passes {passes})")
+
+    first, second = (("row", "column") if mirror else ("column", "row"))
+    return {name: cuda_ms(lambda m=mask: run(m), reps=100, queue_ahead=True)
+            for name, mask in ((f"{first} pass alone", 1),
+                               ("grid.sync alone", 2),
+                               (f"{second} pass alone", 4), ("whole", 7))}
+
+
+def print_split(name: str, split: dict) -> None:
+    print(f"onepass_ntt {name} split (ms): " + ", ".join(
+        f"{k} {v:.6f}" for k, v in split.items()))
+
+
 def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     """Phases 14-16: the fused, onepass and mxu2 prims at 2^16 gates on the
     scaled context `ctx`, against the default prims' `ref_proof` of the
@@ -812,14 +950,11 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
             lambda a=args: RS.row_transform(*a),
             lambda a=args: RS.row_transform_plain(*a), row_bound(R, C))
     # K6: the per-proof forward stack and the inverse of the quotient
+    k6_args = {}
     for name, nb, inverse in (("proof fwd (5, 512, 512)", 5, False),
                               ("inverse (1, 512, 512) scaled", 1, True)):
-        wq = w8i if inverse else w8
-        args = (p, Fr.n_prime, rand(nb, n1, n2),
-                FN._row_tables(Fr, pow(wq, n2, p), n1, dev),
-                FN._tw_mat(Fr, w8, n1, n2, inverse, True, dev),
-                FN._row_tables(Fr, pow(wq, n1, p), n2, dev), inverse,
-                Fr.const(pow(m, -1, p)) if inverse else None)
+        args = onepass_args(Fr, rand(nb, n1, n2), w8, inverse)
+        k6_args[name] = args
         cases["onepass_ntt", name] = (
             lambda a=args: FN.onepass_ntt(*a),
             lambda a=args: FN.onepass_plain(*a),
@@ -866,6 +1001,9 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
         check(err == 0, f"{kname} word-equal at {name}")
         errs[kname] = max(errs.get(kname, 0), err)
         bounds.setdefault(kname, bnd)
+    errs["onepass_ntt"] = max(errs["onepass_ntt"], k6_edge_checks(Fr, dev))
+    for name, args in k6_args.items():
+        print_split(name, onepass_split(*args))
 
     phase("15 precompute_circuit and a 2^16 proof under the fused, onepass "
           "and mxu2 prims")
@@ -1100,11 +1238,50 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds, library)
 
 
+def ntt_kernels_only(dev, card: str) -> None:
+    """--ntt-kernels: K3 (phase 9's checks, phase 13's times) and K6
+    (phase 14's checks, edge inputs and pass split, phase 16's times) at
+    their path shapes, without the provers."""
+    phase("9 K3 big_row vs plain at the 2^12 path's shapes")
+    Fr = BigMontField(BN254_FR)
+    errs, bounds = {}, {}
+    kms = k3_times(Fr, k3_checks(dev, Fr, errs, bounds))
+    phase("14 K6 onepass_ntt vs plain at the 2^18 coset transforms' shapes")
+    F = MontField(SCALED_FR)
+    m = 4 * N_MAIN
+    n1, n2 = FN._split(m)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for name, nb, inverse in (("proof fwd (5, 512, 512)", 5, False),
+                              ("inverse (1, 512, 512) scaled", 1, True)):
+        args = onepass_args(F, torch.randint(0, F.p, (nb, n1, n2),
+                                             generator=gen).to(dev),
+                            SCALED_FR.root_of_unity(m), inverse)
+        err = int((FN.onepass_ntt(*args) - FN.onepass_plain(*args)).abs()
+                  .max())
+        print(f"onepass_ntt {name}: max_abs_err {err}")
+        check(err == 0, f"K6 word-equal at {name}")
+        print_split(name, onepass_split(*args))
+        kms[f"onepass_ntt {name}"] = kernel_times(
+            lambda a=args: FN.onepass_ntt(*a),
+            lambda a=args: FN.onepass_plain(*a))
+        bnd = onepass_bound(nb, n1, n2, inverse)
+        print(f"onepass_ntt {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
+              f"int64 floor {int64_floor_ms(2 * nb * n1 * n2):.6f} ms")
+    k6_edge_checks(F, dev)
+    print(f"card: {card}")
+    print_kernel_times(kms)
+    print(f"ntt kernels checked and timed in {time.perf_counter() - T0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add phase 8: stage times, device time and idle "
                          "share of a proof, verify split")
+    ap.add_argument("--ntt-kernels", action="store_true",
+                    help="only phases 1 and 2, then K3 and K6 against "
+                         "their plain versions with their times and K6's "
+                         "pass split; no result line")
     args = ap.parse_args()
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1129,6 +1306,10 @@ def main() -> None:
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
+
+    if args.ntt_kernels:
+        ntt_kernels_only(dev, card)
+        return
 
     timings = {}
     errs = {}

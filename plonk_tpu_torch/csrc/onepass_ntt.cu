@@ -138,18 +138,21 @@ __global__ void __launch_bounds__(kThreads)
                    const long long* __restrict__ twm,
                    const long long* __restrict__ tw2, long long* out, int nb,
                    int n1, int n2, int S1, int S2, int tc, int mirror,
-                   uint32_t scale, int scaled, MontParams f) {
+                   uint32_t scale, int scaled, int passes, MontParams f) {
   extern __shared__ uint32_t sm[];
   cg::grid_group grid = cg::this_grid();
   if (!mirror) {
-    column_pass(y, out, sm, nb, n1, n2, tc, S1, tw1, true, twm, 0, false, f);
-    grid.sync();
-    row_pass(out, out, sm, nb, n1, n2, S2, tw2, true, nullptr, f);
+    if (passes & 1)
+      column_pass(y, out, sm, nb, n1, n2, tc, S1, tw1, true, twm, 0, false,
+                  f);
+    if (passes & 2) grid.sync();
+    if (passes & 4) row_pass(out, out, sm, nb, n1, n2, S2, tw2, true, nullptr, f);
   } else {
-    row_pass(y, out, sm, nb, n1, n2, S2, tw2, false, twm, f);
-    grid.sync();
-    column_pass(out, out, sm, nb, n1, n2, tc, S1, tw1, false, nullptr, scale,
-                scaled != 0, f);
+    if (passes & 1) row_pass(y, out, sm, nb, n1, n2, S2, tw2, false, twm, f);
+    if (passes & 2) grid.sync();
+    if (passes & 4)
+      column_pass(out, out, sm, nb, n1, n2, tc, S1, tw1, false, nullptr,
+                  scale, scaled != 0, f);
   }
 }
 
@@ -159,7 +162,8 @@ extern "C" int onepass_ntt_launch(const void* y, const void* tw1,
                                   const void* twm, const void* tw2, void* out,
                                   int nb, int n1, int n2, int mirror,
                                   unsigned scale, int scaled, unsigned p,
-                                  unsigned n_prime, void* stream) {
+                                  unsigned n_prime, int passes,
+                                  void* stream) {
   MontParams f{p, n_prime};
   int S1 = 0, S2 = 0;
   while ((1 << S1) < n1) ++S1;
@@ -191,7 +195,7 @@ extern "C" int onepass_ntt_launch(const void* y, const void* tw1,
   const long long* tw2_ = (const long long*)tw2;
   long long* out_ = (long long*)out;
   void* args[] = {&y_, &tw1_, &twm_, &tw2_, &out_, &nb, &n1, &n2, &S1, &S2,
-                  &tc, &mirror, &scale, &scaled, &f};
+                  &tc, &mirror, &scale, &scaled, &passes, &f};
   err = cudaLaunchCooperativeKernel((const void*)onepass_kernel, dim3(blocks),
                                     dim3(kThreads), args, smem,
                                     (cudaStream_t)stream);

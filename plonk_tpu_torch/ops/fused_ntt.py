@@ -35,6 +35,7 @@ from .ntt import _check_root, _stage_tables
 from .row_stages import row_transform, row_transform_plain
 
 MAX_ROW = 8192           # csrc/onepass_ntt.cu: a row or column tile of words
+ONEPASS_ALL = 7          # K6's pass mask: first pass, grid barrier, second
 
 
 def _split(n: int):
@@ -93,8 +94,10 @@ def _twiddle_matrix(p: int, w: int, n1: int, n2: int,
 @functools.lru_cache(maxsize=64)
 def _row_tables(F, w_row: int, n_row: int, device) -> torch.Tensor:
     """(log2 n_row, n_row) Montgomery lane twiddles of a full row
-    transform with root w_row."""
-    return F.array(np.stack(_stage_tables(F.p, w_row, n_row, n_row)), device)
+    transform with root w_row ((0, 1) for n_row = 1)."""
+    tables = _stage_tables(F.p, w_row, n_row, n_row)
+    return F.array(np.stack(tables) if tables
+                   else np.zeros((0, n_row), dtype=np.int64), device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -205,7 +208,7 @@ def onepass_ntt(p: int, n_prime: int, y: torch.Tensor, tw1: torch.Tensor,
         y.data_ptr(), tw1.data_ptr(), twm.data_ptr(), tw2.data_ptr(),
         out.data_ptr(), nb, n1, n2, int(mirror),
         0 if scale is None else scale, int(scale is not None), p, n_prime,
-        torch.cuda.current_stream(y.device).cuda_stream)
+        ONEPASS_ALL, torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check_launch(err, "onepass_ntt")
     return out
 

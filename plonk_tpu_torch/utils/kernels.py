@@ -69,9 +69,9 @@ _SIGNATURES = {
     # y, tw, out, R, C, S, dif, p, n_prime, stream
     "row_transform_launch": [_P, _P, _P, _I, _I, _I, _I, _U, _U, _P],
     # y, tw1, twm, tw2, out, nb, n1, n2, mirror, scale, scaled, p, n_prime,
-    # stream
+    # passes (a mask: 1 first pass, 2 grid barrier, 4 second pass), stream
     "onepass_ntt_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _U,
-                           _U, _P],
+                           _U, _I, _P],
     # x, w_limbs, tw, out, R, C, K, L, limb bits, T, p, n_prime, stream
     "mont_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
                            _P],
