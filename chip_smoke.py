@@ -26,10 +26,18 @@ algebra and its pairings:
 
     python3 chip_smoke.py --profile
 
+With --ntt-kernels only phases 1 and 2 run, then K3 and K6 against their
+plain versions with their times and K6's pass split, in about a minute,
+and no result line is printed:
+
+    python3 chip_smoke.py --ntt-kernels
+
 Then the BN254 path (models/plonk_bn254.py) at 2^12 gates, the size at
 which the JAX package configures its BN254 prover:
-  9. K3 (16-limb row NTT) against its plain version, word-equal, at the
-     path's three row shapes;
+  9. K3's ptxas report (no spills); K3 (16-limb row NTT) against its
+     plain version, word-equal, at the path's three row shapes, on random
+     rows and on edge rows (zeros, p - 1, lo = hi, hi = p - lo), with each
+     shape's bound and int64 floor;
  10. bn254_setup(2^12) and the window table with its packed form for K4,
      timed; K4's ptxas report (registers, spills) and SASS counts; K4
      (16-limb fixed-base commit) against its plain version, affine-equal,
@@ -45,11 +53,13 @@ which the JAX package configures its BN254 prover:
 
 Then the scaled prover's other prims at 2^16 gates, on the context of
 phases 4-7:
- 14. K7's ptxas report and its SASS (it must hold int8 tensor-core
-     instructions); K5 (full-row transform), K6 (one-pass four-step
-     transform) and K7 (modular matmul, also on words p - 1) against
-     their plain versions, word-equal, at the shapes of the 2^18 coset
-     transforms, each call one launch;
+ 14. K6's ptxas report (no spills), K7's and its SASS (it must hold int8
+     tensor-core instructions); K5 (full-row transform), K6 (one-pass
+     four-step transform) and K7 (modular matmul, also on words p - 1)
+     against their plain versions, word-equal, at the shapes of the 2^18
+     coset transforms, each call one launch; K6 also on matrices of zeros
+     and of p - 1, and at nb = 1 on small shapes down to n1 = 1; K6's
+     passes timed apart (first pass, grid barrier, second pass);
  15. make_prover (precompute_circuit) and a proof under fused_prims,
      onepass_prims and mxu2_prims: launches counted for each, diagnostics,
      the proof equal to the default prims' proof of phase 6;
@@ -99,7 +109,8 @@ try:
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models import plonk_scaled as PS
     from plonk_tpu_torch.models.synthetic import (
-        bn254_mul_circuit, from_words, square_chain_circuit, words_vec)
+        big_edge_rows, bn254_mul_circuit, from_words, square_chain_circuit,
+        words_vec)
     from plonk_tpu_torch.ops import bigcommit as BK
     from plonk_tpu_torch.ops import bigcurve as BC
     from plonk_tpu_torch.ops import bigntt as BN
@@ -212,6 +223,17 @@ def ptxas_lines(entry: str) -> list:
         if keep:
             out.append(line.strip())
     return out
+
+
+def ptxas_report(entry: str) -> None:
+    """Print the ptxas -v report of the kernels named `entry` and check
+    that none spills."""
+    report = ptxas_lines(entry)
+    for line in report:
+        print("  " + line)
+    spills = [ln for ln in report if "spill stores" in ln]
+    check(spills and all("0 bytes spill stores" in ln for ln in spills),
+          f"{entry} does not spill")
 
 
 def sass_opcodes(entry: str, opcodes) -> dict:
@@ -596,36 +618,11 @@ def k3_cases(Fr):
     }
 
 
-def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
-    """(R, C, 16) words of elements below p whose rows cycle through five
-    kinds: random; zeros; p - 1; lo = hi; hi = p - lo (so that the first
-    stage's sum is exactly p). lo and hi are the first stage's partners:
-    the two halves of the row for DIF, neighbours for DIT."""
-    vals = rng.integers(0, 1 << 16, size=(R, C, 16))
-    vals[..., 15] &= 0x0FFF                          # < 2^252 < p
-    pw = np.array([(p >> (16 * k)) & 0xFFFF for k in range(16)])
-    vals[1::5] = 0
-    pm1 = pw.copy()
-    pm1[0] -= 1                                      # p is odd
-    vals[2::5] = pm1
-    v = vals.reshape(R, 2, C // 2, 16) if dif else vals.reshape(R, C // 2,
-                                                                  2, 16)
-    lo = v[:, 0] if dif else v[:, :, 0]
-    hi = v[:, 1] if dif else v[:, :, 1]
-    hi[3::5] = lo[3::5]
-    lo[4::5] |= 1                                    # nonzero, so p - lo < p
-    borrow = 0
-    for k in range(16):
-        d = pw[k] - lo[4::5, ..., k] - borrow
-        borrow = (d < 0).astype(np.int64)
-        hi[4::5, ..., k] = d + (borrow << 16)
-    return vals
-
-
 def k3_checks(dev, Fr, errs: dict, bounds: dict) -> dict:
     """K3 against its plain version, word-equal, at each path shape on
     random rows and on edge rows; returns each shape's random inputs for
     timing."""
+    ptxas_report("big_row_kernel")
     rng = np.random.default_rng(1)
     inputs = {}
     for name, (R, C, w, dif, scale) in k3_cases(Fr).items():
@@ -846,14 +843,10 @@ def onepass_args(Fr, y: torch.Tensor, w: int, inverse: bool) -> tuple:
     """The arguments of FN.onepass_ntt for the forward (or, with
     inverse, the scaled mirror) transform of y (nb, n1, n2), n = n1 n2 and
     w a root of order n, as fused_ntt_1k / fused_intt_1k pass them."""
-    p = Fr.p
-    nb, n1, n2 = y.shape
-    wq = pow(w, -1, p) if inverse else w
-    dev = y.device
-    return (p, Fr.n_prime, y, FN._row_tables(Fr, pow(wq, n2, p), n1, dev),
-            FN._tw_mat(Fr, w, n1, n2, inverse, True, dev),
-            FN._row_tables(Fr, pow(wq, n1, p), n2, dev), inverse,
-            Fr.const(pow(n1 * n2, -1, p)) if inverse else None)
+    n = y.shape[1] * y.shape[2]
+    return (Fr.p, Fr.n_prime, y,
+            *FN.onepass_tables(Fr, w, n, inverse, y.device), inverse,
+            Fr.const(pow(n, -1, Fr.p)) if inverse else None)
 
 
 def k6_edge_checks(Fr, dev) -> int:
@@ -891,11 +884,11 @@ def k6_edge_checks(Fr, dev) -> int:
 
 
 def onepass_split(p, n_prime, y, tw1, twm, tw2, mirror, scale) -> dict:
-    """K6's passes timed apart (step 0 of its redesign): the launch with
-    only its first pass, only its grid barrier, only its second pass, and
-    whole, each by CUDA events over 100 launches queued behind a device
-    delay. The second pass alone transforms whatever the output holds.
-    These probe launches go around the wrapper and are not counted."""
+    """K6's passes timed apart: the launch with only its first pass, only
+    its grid barrier, only its second pass, and whole, each by CUDA events
+    over 100 launches queued behind a device delay. The second pass alone
+    transforms whatever the output holds. These probe launches go around
+    the wrapper and are not counted."""
     lib = kernels.library()
     nb, n1, n2 = y.shape
     out = torch.empty_like(y)
@@ -982,6 +975,7 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
             lambda a=(Fr, x, wk, tw): MX.mont_matmul(*a),
             lambda a=(Fr, x, limbs, tw): MX._mont_mat_transform(*a),
             mont_matmul_bound(R, C, K, L, 0 if tw is None else tw.shape[0]))
+    ptxas_report("onepass_kernel")
     for line in ptxas_lines("mont_matmul"):
         print("  " + line)
     sass = sass_opcodes("mont_matmul", ("IGMMA", "IMAD"))
@@ -1048,7 +1042,11 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
               f"({PROOF_REPS} synchronised proofs, in turns)")
     print_kernel_times(kms)
     for (kname, name), (_, _, bnd) in cases.items():
-        print(f"{kname} {name}: bound {bnd[0]:.6f} ms ({bnd[1]})")
+        floor = ""
+        if kname == "onepass_ntt":
+            floor = (f"; int64 floor "
+                     f"{int64_floor_ms(2 * k6_args[name][2].numel()):.6f} ms")
+        print(f"{kname} {name}: bound {bnd[0]:.6f} ms ({bnd[1]}){floor}")
     print(f"mont_matmul at the IMAD rate (32x32->64 products): "
           f"{bounds['mont_matmul'][2]:.6f} ms")
     return kernel_entries(PRIMS_KERNELS, kms, launches, errs, bounds)
@@ -1251,6 +1249,7 @@ def ntt_kernels_only(dev, card: str) -> None:
     m = 4 * N_MAIN
     n1, n2 = FN._split(m)
     gen = torch.Generator(device="cpu").manual_seed(3)
+    ptxas_report("onepass_kernel")
     for name, nb, inverse in (("proof fwd (5, 512, 512)", 5, False),
                               ("inverse (1, 512, 512) scaled", 1, True)):
         args = onepass_args(F, torch.randint(0, F.p, (nb, n1, n2),

@@ -5,6 +5,8 @@ x, x^2, x^4, ..., with copy constraints wiring b_i = a_i and
 a_{i+1} = c_i (the scaled curve).
 bn254_mul_circuit(n): the BN254 prover's bench circuit, n independent
 multiplication gates over BN254-Fr as 16-bit-word arrays.
+big_edge_rows: rows of 16-bit words that reach the reduction edges of a
+size-C transform (K3's checks on the card).
 """
 from __future__ import annotations
 
@@ -85,3 +87,30 @@ def from_words(w) -> int:
     for word in reversed([int(x) for x in np.asarray(w).reshape(-1)]):
         v = (v << 16) | word
     return v
+
+
+def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
+    """(R, C, 16) words of elements below p (254 bits, BN254's Fr or Fq)
+    whose rows cycle through five kinds: random; zeros; p - 1; lo = hi;
+    hi = p - lo (so that the first stage's sum is exactly p). lo and hi
+    are the first stage's partners: the two halves of the row for DIF,
+    neighbours for DIT."""
+    vals = rng.integers(0, 1 << 16, size=(R, C, 16))
+    vals[..., 15] &= 0x0FFF                          # < 2^252 < p
+    pw = np.array([(p >> (16 * k)) & 0xFFFF for k in range(16)])
+    vals[1::5] = 0
+    pm1 = pw.copy()
+    pm1[0] -= 1                                      # p is odd
+    vals[2::5] = pm1
+    v = vals.reshape(R, 2, C // 2, 16) if dif else vals.reshape(R, C // 2,
+                                                                  2, 16)
+    lo = v[:, 0] if dif else v[:, :, 0]
+    hi = v[:, 1] if dif else v[:, :, 1]
+    hi[3::5] = lo[3::5]
+    lo[4::5] |= 1                                    # nonzero, so p - lo < p
+    borrow = 0
+    for k in range(16):
+        d = pw[k] - lo[4::5, ..., k] - borrow
+        borrow = (d < 0).astype(np.int64)
+        hi[4::5, ..., k] = d + (borrow << 16)
+    return vals

@@ -21,10 +21,10 @@ import numpy as np
 import torch
 
 from ..utils import kernels
-from .bigfield import BigMontField, device_table
+from .bigfield import BigMontField, _twiddle_words, device_table
 from .fused_ntt import _bitrev, _split
 
-MAX_ROW = 1024           # csrc/big_row.cu: C/2 threads per block
+MAX_ROW = 1024           # csrc/big_row.cu: a row and its twiddles in 48 KB
 
 
 def _stage_values(p: int, w: int, C: int) -> list:
@@ -49,6 +49,16 @@ def _row_tables(F: BigMontField, w_row: int, C: int) -> np.ndarray:
     """(S, C, limbs) Montgomery words of the per-stage lane twiddles."""
     return np.stack([F.encode_host(np.asarray(t, dtype=object))
                      for t in _stage_values(F.p, w_row, C)])
+
+
+def _packed_powers(F: BigMontField, w_row: int, C: int) -> np.ndarray:
+    """(C/2, 8) int32 limbs of the Montgomery words of w_row^e, e < C/2:
+    every distinct twiddle of a size-C row (stage s, lane j:
+    _row_tables[s, j] is entry (j mod 2^s) << (S - 1 - s)), as K3 reads
+    them, 32 bytes each."""
+    words = _twiddle_words(F.p, w_row, C, F.limbs)
+    return (words[:, 0::2] | (words[:, 1::2] << 16)).astype(
+        np.uint32).view(np.int32)
 
 
 def big_row_pass_plain(F: BigMontField, y: torch.Tensor, tw: torch.Tensor,
@@ -83,14 +93,16 @@ def big_row_pass(F: BigMontField, y: torch.Tensor, w_row: int, dif: bool,
     version; a CUDA tensor launches K3 or raises."""
     R, C, L = y.shape
     dev = str(y.device)
-    tw = device_table(_row_tables, (F, w_row, C), dev)
-    sc = None if scale is None else F.const(scale)
     if y.device.type == "cpu":
-        return big_row_pass_plain(F, y, tw, dif, sc)
+        return big_row_pass_plain(
+            F, y, device_table(_row_tables, (F, w_row, C), dev), dif,
+            None if scale is None else F.const(scale))
     if y.device.type != "cuda":
         raise ValueError(f"big_row_pass: unsupported device {y.device}")
-    if y.dtype != torch.int64 or not y.is_contiguous():
-        raise ValueError("big_row_pass: contiguous int64 words expected")
+    if y.dtype != torch.int64 or not y.is_contiguous() \
+            or y.data_ptr() % 16:
+        raise ValueError("big_row_pass: contiguous, 16-byte aligned int64 "
+                         "words expected")
     if L != 16 or F.limbs != 16:
         raise ValueError("big_row_pass: the kernel takes 16-word elements")
     if C & (C - 1) or not 2 <= C <= MAX_ROW:
@@ -99,11 +111,14 @@ def big_row_pass(F: BigMontField, y: torch.Tensor, w_row: int, dif: bool,
     out = torch.empty_like(y)
     if R == 0:
         return out
+    pw = device_table(_packed_powers, (F, w_row, C), dev)
     err = kernels.library().big_row_launch(
-        y.data_ptr(), tw.data_ptr(), out.data_ptr(), R, C,
+        y.data_ptr(), pw.data_ptr(), out.data_ptr(), R, C,
         C.bit_length() - 1, int(dif), kernels.big_field_arg(F.p),
-        kernels.u256_arg(0 if sc is None else _words_int(sc)),
-        int(sc is not None), torch.cuda.current_stream(y.device).cuda_stream)
+        kernels.u256_arg(0 if scale is None
+                         else _words_int(F.const(scale))),
+        int(scale is not None),
+        torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check_launch(err, "big_row")
     return out
 

@@ -34,7 +34,7 @@ from .field import mont_mul
 from .ntt import _check_root, _stage_tables
 from .row_stages import row_transform, row_transform_plain
 
-MAX_ROW = 8192           # csrc/onepass_ntt.cu: a row or column tile of words
+MAX_ROW = 2048           # csrc/onepass_ntt.cu: a row fits one tile
 ONEPASS_ALL = 7          # K6's pass mask: first pass, grid barrier, second
 
 
@@ -154,13 +154,32 @@ def fused_intt(F, y: torch.Tensor, w: int) -> torch.Tensor:
 
 # ---------------- K6: the whole transform in one launch ----------------
 
+@functools.lru_cache(maxsize=64)
+def onepass_tables(F, w: int, n: int, inverse: bool, device) -> tuple:
+    """K6's tables for the size-n transform with root w (its inverse if
+    `inverse`), made once per (root, size, device): the lane twiddles of
+    axis 0 (log2 n1, n1), the middle twiddle (n1, n2) and the lane
+    twiddles of axis 1 (log2 n2, n2), Montgomery words packed as int32
+    (p < 2^31), which the kernel reads as uint32."""
+    p = F.p
+    n1, n2 = _split(n)
+    wq = pow(w, -1, p) if inverse else w
+    return tuple(t.to(torch.int32) for t in (
+        _row_tables(F, pow(wq, n2, p), n1, device),
+        _tw_mat(F, w, n1, n2, inverse, True, device),
+        _row_tables(F, pow(wq, n1, p), n2, device)))
+
+
 def onepass_plain(p: int, n_prime: int, y: torch.Tensor, tw1: torch.Tensor,
                   twm: torch.Tensor, tw2: torch.Tensor, mirror: bool,
                   scale: int | None) -> torch.Tensor:
     """K6's function on y (nb, n1, n2), in plain PyTorch: mirror=False runs
     DIF along axis 0 (tables tw1), the twiddle twm (n1, n2), DIF along
     axis 1 (tw2); mirror=True runs DIT along axis 1, the twiddle, DIT along
-    axis 0, then the product by `scale` (a Montgomery word) if given."""
+    axis 0, then the product by `scale` (a Montgomery word) if given. The
+    tables may be int64 or onepass_tables' int32 words."""
+    tw1, twm, tw2 = (t.to(torch.int64) for t in (tw1, twm, tw2))
+
     def axis0(a, dif):
         return row_transform_plain(p, n_prime, a.transpose(1, 2), tw1,
                                    dif).transpose(1, 2)
@@ -179,19 +198,24 @@ def onepass_ntt(p: int, n_prime: int, y: torch.Tensor, tw1: torch.Tensor,
                 scale: int | None) -> torch.Tensor:
     """The whole four-step transform of each (n1, n2) matrix of y
     (nb, n1, n2), as onepass_plain. A CPU tensor takes the plain version;
-    a CUDA tensor launches K6 once."""
+    a CUDA tensor launches K6 once, with onepass_tables' int32 tables."""
     if y.device.type == "cpu":
         return onepass_plain(p, n_prime, y, tw1, twm, tw2, mirror, scale)
     if y.device.type != "cuda" or any(t.device != y.device
                                       for t in (tw1, twm, tw2)):
         raise ValueError("onepass_ntt: y and the tables must be on one CUDA "
                          "device")
-    if any(t.dtype != torch.int64 or not t.is_contiguous()
-           for t in (y, tw1, twm, tw2)):
-        raise TypeError("onepass_ntt: contiguous int64 words expected")
+    if y.dtype != torch.int64 or not y.is_contiguous() or any(
+            t.dtype != torch.int32 or not t.is_contiguous()
+            for t in (tw1, twm, tw2)):
+        raise TypeError("onepass_ntt: contiguous int64 words and int32 "
+                        "tables (onepass_tables) expected")
     if y.dim() != 3:
         raise ValueError("onepass_ntt: y must be (nb, n1, n2)")
     nb, n1, n2 = y.shape
+    if p >= 1 << 30:
+        raise ValueError("onepass_ntt: the kernel's lazy residues need "
+                         "p < 2^30")
     S1, S2 = n1.bit_length() - 1, n2.bit_length() - 1
     if n1 & (n1 - 1) or n2 & (n2 - 1) or not 1 <= n1 <= n2 <= MAX_ROW \
             or n2 < 2:
@@ -220,13 +244,9 @@ def _onepass(F, x: torch.Tensor, w: int, inverse: bool, mirror: bool,
     batch = tuple(x.shape[:-1])
     nb = int(np.prod(batch)) if batch else 1
     n1, n2 = _split(n)
-    wq = pow(w, -1, F.p) if inverse else w
-    dev = x.device
     out = onepass_ntt(
         F.p, F.n_prime, x.reshape(nb, n1, n2).contiguous(),
-        _row_tables(F, pow(wq, n2, F.p), n1, dev),
-        _tw_mat(F, w, n1, n2, inverse, True, dev),
-        _row_tables(F, pow(wq, n1, F.p), n2, dev), mirror,
+        *onepass_tables(F, w, n, inverse, x.device), mirror,
         F.const(pow(n, -1, F.p)) if intt_scale else None)
     return out.reshape(batch + (n,))
 

@@ -68,8 +68,9 @@ _SIGNATURES = {
     "row_stages_launch": [_P, _P, _P, _I, _I, _I, _U, _U, _P],
     # y, tw, out, R, C, S, dif, p, n_prime, stream
     "row_transform_launch": [_P, _P, _P, _I, _I, _I, _I, _U, _U, _P],
-    # y, tw1, twm, tw2, out, nb, n1, n2, mirror, scale, scaled, p, n_prime,
-    # passes (a mask: 1 first pass, 2 grid barrier, 4 second pass), stream
+    # y, tw1, twm, tw2 (uint32 tables), out, nb, n1, n2, mirror, scale,
+    # scaled, p, n_prime, passes (a mask: 1 first pass, 2 grid barrier,
+    # 4 second pass), stream
     "onepass_ntt_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _U,
                            _U, _I, _P],
     # x, w_limbs, tw, out, R, C, K, L, limb bits, T, p, n_prime, stream
@@ -79,7 +80,8 @@ _SIGNATURES = {
     # c8, partials, n_tiles, points_per_thread, out, stream
     "commit_many_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
                            _U, _U, _U, _P, _I, _I, _P, _P],
-    # y, tw, out, R, C, S, dif, field, scale, scaled, stream
+    # y, packed twiddle powers, out, R, C, S, dif, field, scale, scaled,
+    # stream
     "big_row_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg, _I,
                        _P],
     # scalar words, base infinity flags, Ls, NW, wb, packed table, B, W, nb,

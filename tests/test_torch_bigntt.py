@@ -89,3 +89,77 @@ def test_row_pass_is_a_size_c_transform(C, dif):
     else:
         assert torch.equal(BN.big_row_pass_plain(F, rows[:, rev], tw,
                                                  False), nat)
+
+
+# ---- K3's packed twiddles and its schedule, on the CPU ----
+# csrc/big_row.cu cannot run here; these hold its index maps (rows of a
+# block, the butterfly pairs of each stage, the twiddle entries) against
+# the plain row pass.
+
+def _unpack(packed: torch.Tensor) -> torch.Tensor:
+    """(..., 8) int32 limbs -> (..., 16) int64 16-bit words."""
+    v = packed.long() & 0xFFFFFFFF
+    return torch.stack([v & 0xFFFF, v >> 16], dim=-1).flatten(-2)
+
+
+@pytest.mark.parametrize("C", [2, 8, 128, 1024])
+def test_packed_powers_unpack_to_the_row_tables(C):
+    """Entry (j mod 2^s) << (S - 1 - s) of the packed powers is the lane
+    twiddle _row_tables[s, j] of every stage s and lane j."""
+    w = BN254_FR.root_of_unity(C)
+    packed = torch.as_tensor(BN._packed_powers(F, w, C))
+    tw = torch.as_tensor(BN._row_tables(F, w, C))
+    S = C.bit_length() - 1
+    assert packed.shape == (C // 2, 8) and packed.dtype == torch.int32
+    words = _unpack(packed)
+    j = torch.arange(C)
+    for s in range(S):
+        assert torch.equal(words[(j & ((1 << s) - 1)) << (S - 1 - s)], tw[s])
+
+
+def _k3_model(y, packed, dif: bool, scale=None):
+    """big_row.cu's schedule in PyTorch: blocks of 2^rb rows (256 elements,
+    2 a thread), per stage the pairs lo = t with a 0 inserted at bit s and
+    hi = lo + 2^s, the twiddle of lo from the packed powers."""
+    R, C, L = y.shape
+    S = C.bit_length() - 1
+    pw = _unpack(packed)
+    rb = 0
+    while (C << (rb + 1)) <= 256 and (1 << rb) < R:
+        rb += 1
+    out = []
+    for row0 in range(0, R, 1 << rb):
+        rows = y[row0:row0 + (1 << rb)]
+        el = torch.zeros(((1 << rb) * C, L), dtype=torch.int64)
+        el[:rows.shape[0] * C] = rows.reshape(-1, L)
+        t = torch.arange(el.shape[0] // 2)
+        for k in range(S):
+            s = S - 1 - k if dif else k
+            lo = ((t >> s) << (s + 1)) | (t & ((1 << s) - 1))
+            hi = lo | (1 << s)
+            a, b = el[lo], el[hi]
+            w = pw[(lo & ((1 << s) - 1)) << (S - 1 - s)]
+            if dif:
+                el[lo], el[hi] = F.add(a, b), F.mont_mul(F.sub(a, b), w)
+            else:
+                u = F.mont_mul(b, w)
+                el[lo], el[hi] = F.add(a, u), F.sub(a, u)
+        if scale is not None:
+            el = F.mont_mul(el, scale)
+        out.append(el[:rows.shape[0] * C].reshape(-1, C, L))
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("R,C,dif,scaled", [(5, 2, True, False),
+                                            (3, 8, False, True),
+                                            (7, 16, True, False),
+                                            (3, 128, False, True),
+                                            (1, 512, True, False)])
+def test_row_pass_schedule_model_matches_plain(R, C, dif, scaled):
+    w = BN254_FR.root_of_unity(C)
+    y = _rand((R, C), R * C)
+    sc = F.const(777) if scaled else None
+    got = _k3_model(y, torch.as_tensor(BN._packed_powers(F, w, C)), dif, sc)
+    want = BN.big_row_pass_plain(F, y, torch.as_tensor(BN._row_tables(F, w, C)),
+                                 dif, sc)
+    assert torch.equal(got, want)

@@ -153,6 +153,28 @@ def test_onepass_kernel_matches_plain(dev, nb, n):
         assert torch.equal(y.cpu(), FN.fused_ntt(Fr, x.cpu(), w))
 
 
+@pytest.mark.parametrize("fill", ["zeros", "p - 1"])
+@pytest.mark.parametrize("nb,n", [(5, 1 << 18), (1, 1 << 18), (1, 2),
+                                  (1, 8), (1, 64), (1, 1 << 11)])
+def test_onepass_kernel_edge_inputs(dev, nb, n, fill):
+    """Matrices of zeros and of p - 1, forward and scaled mirror, down to
+    n1 = 1 (n = 2): word-equal to the plain version."""
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    w = SCALED_FR.root_of_unity(n)
+    n1, n2 = FN._split(n)
+    y = torch.full((nb, n1, n2), 0 if fill == "zeros" else Fr.p - 1,
+                   dtype=torch.int64, device=dev)
+    for mirror in (False, True):
+        args = (Fr.p, Fr.n_prime, y,
+                *FN.onepass_tables(Fr, w, n, mirror, dev), mirror,
+                Fr.const(pow(n, -1, Fr.p)) if mirror else None)
+        before = kernels.LAUNCHES["onepass_ntt"]
+        got = FN.onepass_ntt(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["onepass_ntt"] == before + 1
+        assert torch.equal(got, FN.onepass_plain(*args))
+
+
 @pytest.mark.parametrize("R,C,with_tw", [(24, 8, True), (40, 8, False),
                                          (2560, 512, True),
                                          (512, 512, False), (100, 32, True)])
@@ -296,6 +318,35 @@ def test_big_row_kernel_matches_plain(dev, R, C, dif, scaled):
     tw = torch.as_tensor(BN._row_tables(F, w, C))
     want = BN.big_row_pass_plain(
         F, y, tw, dif, None if scale is None else F.const(scale))
+    before = kernels.LAUNCHES["big_row"]
+    got = BN.big_row_pass(F, y.to(dev), w, dif, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_row"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("R,C,dif,scaled", [(1280, 128, True, False),
+                                            (768, 128, True, False),
+                                            (128, 128, False, True),
+                                            (10, 4, False, False),
+                                            (5, 2, True, True),
+                                            (5, 1024, True, True)])
+def test_big_row_kernel_edge_rows(dev, R, C, dif, scaled):
+    """Rows of zeros, of p - 1, with lo = hi and with hi = p - lo (a lazy
+    sum lands on p) beside random rows: word-equal to the plain version,
+    whose outputs are canonical."""
+    from plonk_tpu_torch.models.synthetic import big_edge_rows
+    from plonk_tpu_torch.ops import bigntt as BN
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    from plonk_tpu_torch.utils.params import BN254_FR
+    F = BigMontField(BN254_FR)
+    w = BN254_FR.root_of_unity(C)
+    y = torch.as_tensor(big_edge_rows(F.p, R, C, dif,
+                                      np.random.default_rng(R + C)))
+    scale = 54321 if scaled else None
+    want = BN.big_row_pass_plain(
+        F, y, torch.as_tensor(BN._row_tables(F, w, C)), dif,
+        None if scale is None else F.const(scale))
     before = kernels.LAUNCHES["big_row"]
     got = BN.big_row_pass(F, y.to(dev), w, dif, scale)
     torch.cuda.synchronize()
