@@ -40,7 +40,7 @@
 // hides its latency only with more threads in flight: register rounds of
 // radix 4 (4 elements a thread, 4 barriers instead of 7 at C = 128) were
 // slower at every shape of the prover, their two products a stage not
-// overlapping even when interleaved round by round (PERF.md, PR 6).
+// overlapping even when interleaved round by round (PERF.md, §6).
 #include <cuda_runtime.h>
 #include <cstdint>
 
