@@ -7,17 +7,20 @@ Run from the root of the repository:
 Phases, each announced on its own line:
   1. the CUDA device, and its name and power limit from nvidia-smi;
   2. build of the CUDA kernels from plonk_tpu_torch/csrc/;
-  3. K1 (row-stage NTT) against its plain PyTorch version, bit-equal, at
-     the main path's shapes;
-  4. the 2^16-gate setup, then K2 (fixed-base commit) against its plain
-     version, affine-equal, at the main path's shape and on a batch with
-     zero scalars and repeated, opposite and infinity bases;
+  3. K1's ptxas report (no spills); K1 (row-stage NTT) against its plain
+     PyTorch version, word-equal, at the main path's shapes, on random
+     rows and on edge rows (zeros, r - 1, lo = hi, hi = r - lo), with each
+     shape's bound and int64 floor;
+  4. the 2^16-gate setup; K2's ptxas report (no spills); K2 (fixed-base
+     commit) against its plain version, affine-equal, at the main path's
+     shape, at one shard's of the 8-shard mesh (L = 8 193) and on a batch
+     with zero scalars and repeated, opposite and infinity bases;
   5. the n = 16 proof on the GPU against the CPU port and the JAX
      package's recorded values;
   6. the main path at 2^16 gates: make_prover, prove (kernel launches
      counted), diagnostics, verifying key, verify, tamper rejection;
   7. times: setup, table build, proofs/s, verify, each kernel against its
-     plain version.
+     plain version at each shape of phases 3 and 4, with its bound.
 
 With --profile a phase 8 follows: the time of each prover stage, the
 device kernels and device time of a proof under torch.profiler (and so
@@ -26,11 +29,12 @@ algebra and its pairings:
 
     python3 chip_smoke.py --profile
 
-With --ntt-kernels only phases 1 and 2 run, then K3 and K6 against their
-plain versions with their times and K6's pass split, in about a minute,
-and no result line is printed:
+With --kernels only phases 1 and 2 run, then phases 3 and 4 (K1 and K2
+against their plain versions), K1's and K2's times and bounds, phase 9's
+K3 checks and phase 14's K6 checks, edge inputs and pass split with their
+times, in about two minutes, and no result line is printed:
 
-    python3 chip_smoke.py --ntt-kernels
+    python3 chip_smoke.py --kernels
 
 Then the BN254 path (models/plonk_bn254.py) at 2^12 gates, the size at
 which the JAX package configures its BN254 prover:
@@ -109,8 +113,8 @@ try:
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models import plonk_scaled as PS
     from plonk_tpu_torch.models.synthetic import (
-        big_edge_rows, bn254_mul_circuit, from_words, square_chain_circuit,
-        words_vec)
+        big_edge_rows, bn254_mul_circuit, edge_rows, from_words,
+        square_chain_circuit, words_vec)
     from plonk_tpu_torch.ops import bigcommit as BK
     from plonk_tpu_torch.ops import bigcurve as BC
     from plonk_tpu_torch.ops import bigntt as BN
@@ -550,10 +554,12 @@ def mont_matmul_bound(R: int, C: int, K: int, L: int, T: int):
 def commit_bound(table, scalars):
     """K2's least time, counted on this run's scalars: the 31-bit scalars
     read once, each table entry that some nonzero digit selects read once
-    (x, y and its infinity flag), the Jacobian output written once; one
-    complete addition (16 Montgomery products of MONT31_IMAD multiply-adds)
-    per nonzero-digit, non-identity term. Returns (bound, terms, distinct
-    entries)."""
+    (x and y, 8 bytes; infinity needs no byte of its own, an x that no
+    coordinate takes marks it), the Jacobian output written once; per
+    nonzero-digit, non-identity term one mixed addition (the table point
+    is affine), 7 products and 4 squares of MONT31_IMAD multiply-adds
+    (madd-2007-bl), as K4's bound counts it. Returns (bound, terms,
+    distinct entries)."""
     wb = int(table.window_bits)
     W, nb, L = table.x.shape
     digits = torch.stack([(scalars >> (w * wb)) & (nb - 1)
@@ -563,8 +569,9 @@ def commit_bound(table, scalars):
     terms = int(((digits != 0) & ~hit).sum())
     entries = selected_entries(digits, nb)
     n_bytes = ((scalars.numel() + 3 * scalars.shape[0]) * WORD_BYTES
-               + entries * (2 * WORD_BYTES + 1))
-    return bound_ms(n_bytes, terms * 16 * MONT31_IMAD), terms, entries
+               + entries * 2 * WORD_BYTES)
+    return (bound_ms(n_bytes, terms * (7 + 4) * MONT31_IMAD), terms,
+            entries)
 
 
 def int64_floor_ms(n_words: int) -> float:
@@ -1236,14 +1243,151 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds, library)
 
 
-def ntt_kernels_only(dev, card: str) -> None:
-    """--ntt-kernels: K3 (phase 9's checks, phase 13's times) and K6
-    (phase 14's checks, edge inputs and pass split, phase 16's times) at
-    their path shapes, without the provers."""
+# K1's and K2's kernels in the ptxas report (a substring of the mangled
+# name)
+K1_ENTRY = "row_stages_kernel"
+K2_ENTRY = "commit_tiles_kernel"
+
+
+def k1_phase(dev, errs: dict):
+    """Phase 3: K1's ptxas report (no spills), then K1 against its plain
+    version, word-equal, at the main path's shapes on random rows and on
+    edge rows, with each shape's bound and int64 floor. Returns the field
+    and each shape's random inputs for timing."""
+    phase("3 K1 row_stages vs plain at the main path's shapes")
+    ptxas_report(K1_ENTRY)
+    pp = PS.scaled_plonk_params(N_MAIN)
+    Fr = MontField(pp.field)
+    rng = np.random.default_rng(0)
+    k1_cases = {
+        # the 2^18 coset stack of the proof (5 rows, forward root)
+        "coset 5x2^18": (5, 4 * N_MAIN, pp.field.root_of_unity(4 * N_MAIN)),
+        # the 2^16 circuit interpolation stack (9 rows, inverse root)
+        "interp 9x2^16": (9, N_MAIN, pow(pp.omega, -1, Fr.p)),
+    }
+    inputs = {}
+    for name, (rows, n, w) in k1_cases.items():
+        intra, _ = N._device_tables(Fr, w, n, 1024, dev)
+        R = rows * n // 1024
+        for kind in ("random", "edge rows"):
+            vals = (rng.integers(0, Fr.p, size=(R, 1024)) if kind == "random"
+                    else edge_rows(Fr.p, R, 1024, rng))
+            y = torch.as_tensor(vals, device=dev)
+            got = RS.row_stages(Fr.p, Fr.n_prime, y, intra)
+            want = RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            print(f"K1 {name} {tuple(y.shape)}, {kind}: max_abs_err {err}")
+            check(err == 0, f"K1 word-equal at {name}, {kind}")
+            errs["row_stages"] = max(errs.get("row_stages", 0), err)
+            if kind == "random":
+                inputs[name] = (y, intra)
+        bnd = row_bound(R, 1024)
+        print(f"K1 {name} {(R, 1024)}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
+              f"int64 floor {int64_floor_ms(2 * R * 1024):.6f} ms")
+    return Fr, inputs
+
+
+def k2_phase(dev, timings: dict, errs: dict):
+    """Phase 4: the 2^16 setup and window table, timed; K2's ptxas report
+    (no spills); K2 against its plain version, affine-equal, at the main
+    path's shape (B = 9, L = n + 6), at one shard's of the 8-shard mesh
+    (B = 9, L = 8 193) and on a batch with zero scalars and repeated,
+    opposite and infinity bases. Returns the context and each shape's
+    (table, scalars) for timing."""
+    phase("4 setup at 2^16 and K2 commit_many vs plain")
+    ctx, timings["setup_s"] = wall(
+        lambda: PS.scaled_new(N_MAIN, device=dev))
+    tbl, timings["table_build_s"] = wall(lambda: PS.fixed_base_table(ctx))
+    Fq = ctx.Fq
+    L = ctx.srs.length
+    print(f"scaled_new(2^16) {timings['setup_s']:.3f} s, L = {L}; "
+          f"window table {tuple(tbl.x.shape)} "
+          f"{timings['table_build_s']:.3f} s")
+    check(L == N_MAIN + 6, "SRS length n + 6")
+    ptxas_report(K2_ENTRY)
+    shard = DP._pad_table(ctx, MS.make_1d_mesh("sp", D_MESH, device=dev))[0]
+    r = ctx.params.curve.r
+    rng = np.random.default_rng(0)
+    inputs = {}
+    for t in (tbl, shard):
+        B, Lt = 9, t.x.shape[2]
+        scalars = torch.as_tensor(rng.integers(0, ctx.params.field.p,
+                                               size=(B, Lt)), device=dev)
+        got = CM.msm_fixed_base_many_kernel(Fq, t, scalars)
+        want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, t, scalars))
+        err = affine_err(got, want)
+        print(f"K2 B={B} L={Lt}: max_abs_err {err}")
+        check(err == 0 and not bool(got.inf.any()),
+              f"K2 affine-equal, B={B} L={Lt}")
+        errs["commit_many"] = max(errs.get("commit_many", 0), err)
+        inputs[f"B={B} L={Lt}"] = (t, scalars)
+    # zero scalars; repeated, opposite and infinity base points
+    ks = rng.integers(0, 64, size=4096)
+    ks[1::3] = r - ks[1::3]
+    pts = C.g1_mul(Fq, C.g1_generator(ctx.params.curve, Fq, dev),
+                   torch.as_tensor(ks % r, device=dev), nbits=r.bit_length())
+    edge_tbl = CM.build_commit_table(Fq, pts, r.bit_length())
+    sc = rng.integers(0, r, size=(3, 4096))
+    sc[0, ::4] = 0
+    sc[1] = 0
+    edge = torch.as_tensor(sc, device=dev)
+    got = CM.msm_fixed_base_many_kernel(Fq, edge_tbl, edge)
+    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, edge_tbl, edge))
+    err = affine_err(got, want)
+    print(f"K2 edge batch (zero rows, infinity/repeated/opposite bases): "
+          f"max_abs_err {err}, infinity rows {got.inf.tolist()}")
+    check(err == 0 and bool(got.inf[1]), "K2 affine-equal, edge batch")
+    errs["commit_many"] = max(errs["commit_many"], err)
+    return ctx, inputs
+
+
+def k12_times(Fr, Fq, k1_inputs: dict, k2_inputs: dict) -> dict:
+    """kernel_times of K1 and K2 at each of their phase 3 and 4 shapes."""
+    kms = {}
+    for name, (y, intra) in k1_inputs.items():
+        kms[f"row_stages {name}"] = kernel_times(
+            lambda a=(y, intra): RS.row_stages(Fr.p, Fr.n_prime, *a),
+            lambda a=(y, intra): RS.row_stages_plain(Fr.p, Fr.n_prime, *a),
+            plain_reps=10)
+    for name, (tbl, scalars) in k2_inputs.items():
+        kms[f"commit_many {name}"] = kernel_times(
+            lambda a=(tbl, scalars): CM.commit_many(Fq, *a),
+            lambda a=(tbl, scalars): CM.commit_many_plain(Fq, *a))
+    return kms
+
+
+def k12_bounds(k1_inputs: dict, k2_inputs: dict) -> dict:
+    """Print K1's and K2's bound at each of their shapes; returns the
+    bound of each one's first shape (the shape of the kernels line)."""
+    bounds = {}
+    for name, (y, _) in k1_inputs.items():
+        bnd = row_bound(*y.shape)
+        bounds.setdefault("row_stages", bnd)
+        print(f"row_stages {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); int64 "
+              f"floor {int64_floor_ms(2 * y.numel()):.6f} ms")
+    for name, (tbl, scalars) in k2_inputs.items():
+        bnd, terms, entries = commit_bound(tbl, scalars)
+        bounds.setdefault("commit_many", bnd)
+        print(f"commit_many {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
+              f"{terms} terms with a nonzero digit, {entries} distinct "
+              "table entries they select")
+    return bounds
+
+
+def kernels_only(dev, card: str) -> None:
+    """--kernels: K1 and K2 (phases 3 and 4's checks, phase 7's times), K3
+    (phase 9's checks, phase 13's times) and K6 (phase 14's checks, edge
+    inputs and pass split, phase 16's times) at their path shapes, without
+    the provers."""
+    errs = {}
+    Fr, k1_inputs = k1_phase(dev, errs)
+    ctx, k2_inputs = k2_phase(dev, {}, errs)
+    kms = k12_times(Fr, ctx.Fq, k1_inputs, k2_inputs)
+    k12_bounds(k1_inputs, k2_inputs)
     phase("9 K3 big_row vs plain at the 2^12 path's shapes")
-    Fr = BigMontField(BN254_FR)
-    errs, bounds = {}, {}
-    kms = k3_times(Fr, k3_checks(dev, Fr, errs, bounds))
+    Fb = BigMontField(BN254_FR)
+    kms.update(k3_times(Fb, k3_checks(dev, Fb, errs, {})))
     phase("14 K6 onepass_ntt vs plain at the 2^18 coset transforms' shapes")
     F = MontField(SCALED_FR)
     m = 4 * N_MAIN
@@ -1269,7 +1413,7 @@ def ntt_kernels_only(dev, card: str) -> None:
     k6_edge_checks(F, dev)
     print(f"card: {card}")
     print_kernel_times(kms)
-    print(f"ntt kernels checked and timed in {time.perf_counter() - T0:.1f} s")
+    print(f"kernels checked and timed in {time.perf_counter() - T0:.1f} s")
 
 
 def main() -> None:
@@ -1277,10 +1421,11 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="add phase 8: stage times, device time and idle "
                          "share of a proof, verify split")
-    ap.add_argument("--ntt-kernels", action="store_true",
-                    help="only phases 1 and 2, then K3 and K6 against "
-                         "their plain versions with their times and K6's "
-                         "pass split; no result line")
+    ap.add_argument("--kernels", action="store_true",
+                    help="only phases 1 and 2, then K1, K2, K3 and K6 "
+                         "against their plain versions with their times, "
+                         "ptxas reports and K6's pass split; no result "
+                         "line")
     args = ap.parse_args()
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1306,74 +1451,16 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    if args.ntt_kernels:
-        ntt_kernels_only(dev, card)
+    if args.kernels:
+        kernels_only(dev, card)
         return
 
     timings = {}
     errs = {}
-
-    phase("3 K1 row_stages vs plain at the main path's shapes")
-    pp = PS.scaled_plonk_params(N_MAIN)
-    Fr = MontField(pp.field)
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    k1_cases = {
-        # the 2^18 coset stack of the proof (5 rows, forward root)
-        "coset 5x2^18": (5, 4 * N_MAIN, pp.field.root_of_unity(4 * N_MAIN)),
-        # the 2^16 circuit interpolation stack (9 rows, inverse root)
-        "interp 9x2^16": (9, N_MAIN, pow(pp.omega, -1, Fr.p)),
-    }
-    k1_inputs = {}
-    for name, (rows, n, w) in k1_cases.items():
-        intra, _ = N._device_tables(Fr, w, n, 1024, dev)
-        y = torch.randint(0, Fr.p, (rows * n // 1024, 1024),
-                          generator=gen).to(dev)
-        got = RS.row_stages(Fr.p, Fr.n_prime, y, intra)
-        want = RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        print(f"K1 {name} {tuple(y.shape)}: max_abs_err {err}")
-        check(err == 0, f"K1 bit-equal at {name}")
-        errs.setdefault("row_stages", 0)
-        errs["row_stages"] = max(errs["row_stages"], err)
-        k1_inputs[name] = (y, intra)
-
-    phase("4 setup at 2^16 and K2 commit_many vs plain")
-    ctx, timings["setup_s"] = wall(
-        lambda: PS.scaled_new(N_MAIN, device=dev))
-    tbl, timings["table_build_s"] = wall(lambda: PS.fixed_base_table(ctx))
+    Fr, k1_inputs = k1_phase(dev, errs)
+    ctx, k2_inputs = k2_phase(dev, timings, errs)
+    pp = ctx.params
     Fq = ctx.Fq
-    L = ctx.srs.length
-    print(f"scaled_new(2^16) {timings['setup_s']:.3f} s, L = {L}; "
-          f"window table {tuple(tbl.x.shape)} "
-          f"{timings['table_build_s']:.3f} s")
-    check(L == N_MAIN + 6, "SRS length n + 6")
-    rng = np.random.default_rng(0)
-    scalars = torch.as_tensor(rng.integers(0, pp.field.p, size=(9, L)),
-                              device=dev)
-    got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
-    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
-    err = affine_err(got, want)
-    print(f"K2 B=9 L={L}: max_abs_err {err}")
-    check(err == 0 and not bool(got.inf.any()), "K2 affine-equal, B=9")
-    # zero scalars; repeated, opposite and infinity base points
-    r = pp.curve.r
-    ks = rng.integers(0, 64, size=4096)
-    ks[1::3] = r - ks[1::3]
-    pts = C.g1_mul(Fq, C.g1_generator(pp.curve, Fq, dev),
-                   torch.as_tensor(ks % r, device=dev), nbits=r.bit_length())
-    edge_tbl = CM.build_commit_table(Fq, pts, r.bit_length())
-    sc = rng.integers(0, r, size=(3, 4096))
-    sc[0, ::4] = 0
-    sc[1] = 0
-    edge = torch.as_tensor(sc, device=dev)
-    got = CM.msm_fixed_base_many_kernel(Fq, edge_tbl, edge)
-    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, edge_tbl, edge))
-    err2 = affine_err(got, want)
-    print(f"K2 edge batch (zero rows, infinity/repeated/opposite bases): "
-          f"max_abs_err {err2}, infinity rows {got.inf.tolist()}")
-    check(err2 == 0 and bool(got.inf[1]), "K2 affine-equal, edge batch")
-    errs["commit_many"] = max(err, err2)
 
     phase("5 n = 16 proof: GPU vs CPU port vs recorded JAX values")
     small = []
@@ -1426,15 +1513,7 @@ def main() -> None:
         check(bool(d.all_ok()), f"rep {rep} diagnostics")
     torch.cuda.synchronize()
     timings["proofs_per_s"] = PROOF_REPS / (time.perf_counter() - t)
-    kms = {}
-    for name, (y, intra) in k1_inputs.items():
-        kms[f"row_stages {name}"] = kernel_times(
-            lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra),
-            lambda: RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra),
-            plain_reps=10)
-    kms[f"commit_many B=9 L={L}"] = kernel_times(
-        lambda: CM.commit_many(Fq, tbl, scalars),
-        lambda: CM.commit_many_plain(Fq, tbl, scalars))
+    kms = k12_times(Fr, Fq, k1_inputs, k2_inputs)
     timings["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"card: {card}")
     for key, v in timings.items():
@@ -1443,11 +1522,7 @@ def main() -> None:
     if args.profile:
         profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
                       1 / timings["proofs_per_s"])
-    bounds = {"row_stages": row_bound(
-        *next(iter(k1_inputs.values()))[0].shape)}
-    bounds["commit_many"], terms2, entries2 = commit_bound(tbl, scalars)
-    print(f"K2 terms with a nonzero digit: {terms2}; distinct table entries "
-          f"they select: {entries2}")
+    bounds = k12_bounds(k1_inputs, k2_inputs)
     entries = kernel_entries(KERNELS, kms, launches, errs, bounds)
     bn_entries, _ = bn254_phases(dev, card, args.profile)
     pr_entries = prims_phases(dev, card, ctx, (sel, cp, a, b, c), proof,

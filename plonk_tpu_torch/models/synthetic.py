@@ -6,7 +6,8 @@ a_{i+1} = c_i (the scaled curve).
 bn254_mul_circuit(n): the BN254 prover's bench circuit, n independent
 multiplication gates over BN254-Fr as 16-bit-word arrays.
 big_edge_rows: rows of 16-bit words that reach the reduction edges of a
-size-C transform (K3's checks on the card).
+size-C transform (K3's checks on the card); edge_rows the same for rows of
+31-bit words (K1's).
 """
 from __future__ import annotations
 
@@ -113,4 +114,19 @@ def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
         d = pw[k] - lo[4::5, ..., k] - borrow
         borrow = (d < 0).astype(np.int64)
         hi[4::5, ..., k] = d + (borrow << 16)
+    return vals
+
+
+def edge_rows(p: int, R: int, C: int, rng) -> np.ndarray:
+    """(R, C) words below p (one machine word, the scaled curve's Fr) whose
+    rows cycle through five kinds: random; zeros; p - 1; lo = hi; hi = p -
+    lo (so that the first DIT stage's sum, whose twiddle is 1, is exactly
+    p). lo and hi are the first stage's partners, neighbours in the row."""
+    vals = rng.integers(0, p, size=(R, C))
+    vals[1::5] = 0
+    vals[2::5] = p - 1
+    lo, hi = vals[:, 0::2], vals[:, 1::2]
+    hi[3::5] = lo[3::5]
+    lo[4::5] = np.maximum(lo[4::5], 1)               # so p - lo < p
+    hi[4::5] = p - lo[4::5]
     return vals
