@@ -1246,7 +1246,7 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
 # name)
 K1_ENTRY = "row_stages_kernel"
-K2_ENTRY = "commit_tiles_kernel"
+K2_ENTRY = "commit_many_kernel"
 
 
 def k1_phase(dev, errs: dict):
@@ -1322,15 +1322,20 @@ def k2_phase(dev, timings: dict, errs: dict):
               f"K2 affine-equal, B={B} L={Lt}")
         errs["commit_many"] = max(errs.get("commit_many", 0), err)
         inputs[f"B={B} L={Lt}"] = (t, scalars)
-    # zero scalars; repeated, opposite and infinity base points
+    # zero scalars; repeated, opposite and infinity base points; a row of
+    # scalars r, whose terms of one point sum to infinity in one thread
+    # (H = 0 at its top window), and of 7 * 2^24 + 2^22 - 1, whose top term
+    # equals the sum of the others (a doubling)
     ks = rng.integers(0, 64, size=4096)
     ks[1::3] = r - ks[1::3]
     pts = C.g1_mul(Fq, C.g1_generator(ctx.params.curve, Fq, dev),
                    torch.as_tensor(ks % r, device=dev), nbits=r.bit_length())
     edge_tbl = CM.build_commit_table(Fq, pts, r.bit_length())
-    sc = rng.integers(0, r, size=(3, 4096))
+    sc = rng.integers(0, r, size=(5, 4096))
     sc[0, ::4] = 0
     sc[1] = 0
+    sc[3] = r
+    sc[4] = 7 * 2 ** 24 + 2 ** 22 - 1
     edge = torch.as_tensor(sc, device=dev)
     got = CM.msm_fixed_base_many_kernel(Fq, edge_tbl, edge)
     want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, edge_tbl, edge))
@@ -1384,6 +1389,21 @@ def kernels_only(dev, card: str) -> None:
     Fr, k1_inputs = k1_phase(dev, errs)
     ctx, k2_inputs = k2_phase(dev, {}, errs)
     kms = k12_times(Fr, ctx.Fq, k1_inputs, k2_inputs)
+    # the packed table's other entry order, (W, L, nb) in memory, timed
+    # beside the wrapper's (W, nb, L)
+    for name, (tbl, scalars) in k2_inputs.items():
+        other = tbl._replace(packed=tbl.packed.transpose(1, 2).contiguous()
+                             .transpose(1, 2))
+        got = C.jac_to_affine(ctx.Fq, CM.commit_many(ctx.Fq, other, scalars))
+        want = CM.msm_fixed_base_many_kernel(ctx.Fq, tbl, scalars)
+        check(affine_err(got, want) == 0, f"K2 (W, L, nb) order at {name}")
+        ms = {order: cuda_ms(lambda t=t: CM.commit_many(ctx.Fq, t, scalars),
+                             reps=100, queue_ahead=True)
+              for order, t in (("(W, nb, L)", tbl), ("(W, L, nb)", other),
+                               ("(W, nb, L) again", tbl))}
+        print(f"commit_many {name} by entry order in memory (CUDA events, "
+              "queued ahead): " + ", ".join(f"{k} {v:.6f} ms"
+                                            for k, v in ms.items()))
     k12_bounds(k1_inputs, k2_inputs)
     phase("9 K3 big_row vs plain at the 2^12 path's shapes")
     Fb = BigMontField(BN254_FR)

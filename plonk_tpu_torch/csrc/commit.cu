@@ -9,28 +9,44 @@
 // against the window table of build_commit_table (layout (W, nb, L), row
 // d = 0 the identity, padded windows all identity).
 //
-// Bound on the H100: integer multiply throughput. Each (b, i, w) term costs
-// one complete Jacobian addition (~16 Montgomery products, each 4 32-bit
-// multiply-adds: a * b as a 32x32->64 product of two, m = lo(ab) n' and
-// the high half of m p, one each); the
-// selected table entries are 9 bytes of value each (x, y, infinity flag;
-// 17 in the port's int64 storage), read once per commitment and mostly
+// Bound on the H100: integer multiply throughput. Each (b, i, w) term with
+// a nonzero digit costs one mixed addition (madd-2007-bl: 7 Montgomery
+// products and 4 squares, each 4 32-bit multiply-adds: a * b as a
+// 32x32->64 product of two, m = lo(ab) n' and the high half of m p, one
+// each); the selected table entries are 8 bytes of value each (x and y;
+// infinity needs no byte of its own), read once per commitment and mostly
 // from L2 after the first commitment.
-// Design: the TPU kernel swept every bucket d and selected by mask, because
-// TPU gathers run element by element; a GPU thread reads
-// table[w][digit][i] directly, so there is no sweep. Grid = (point tiles,
-// commitments); each thread folds its points' terms into a register
-// accumulator, a shared-memory tree reduces the block to one partial, and
-// a second small launch folds the tiles' partials per commitment. The
-// addition is complete (identity, doubling, inverse points), so every
-// reduction order gives the same affine point. Points past L are skipped
-// rather than padded with identity entries and zero scalars as on the TPU.
+//
+// Design. The TPU kernel swept every bucket d and selected by mask, because
+// TPU gathers run element by element; a GPU thread reads table[w][d][i]
+// directly. The kernel reads the table's packed copy (ops/commit.py
+// pack_commit_table): one 64-bit word x | y << 32 per entry in Montgomery
+// form, infinity the x = 0xFFFFFFFF that no coordinate takes (p < 2^31),
+// half the bytes of the int64 table and one 8-byte load a term; its
+// strides are the wrapper's, so the entry order in memory is the packer's
+// choice. A digit d = 0 (row 0 is the identity by construction, as the TPU
+// kernel relies on) is skipped without a load, and so is the padded top
+// window, whose digits are 0. The scalars are read as their low 32-bit
+// words. The table point is affine, so each term is a mixed addition, kept
+// complete: an accumulator at infinity takes the point, H = 0 gives a
+// doubling or infinity, the sentinel is skipped. Residues stay canonical
+// (2p > 2^31, so a sum of two lazy residues would not fit 32 bits).
+// Blocks: b is the fastest block index, so the B commitments of a point
+// tile run side by side and each table sector fetched from device memory
+// serves them from L2; the tiles split the points evenly, their count set
+// so that the grid fills the SMs. A thread folds its points' terms into a
+// register accumulator; the block reduces through shared memory to one
+// warp and that warp by shuffles, with complete additions. The last block
+// to finish (an atomic ticket after a __threadfence) folds every tile's
+// partial in a fixed order, so the launch is one and the Jacobian result
+// deterministic; it resets the ticket for the next launch.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "mont.cuh"
 
-#define THREADS 256
+constexpr int kThreads = 256;
+constexpr uint32_t kInfinity = 0xFFFFFFFFu;  // packed x of the identity
 
 struct CurveConsts {
   MontParams f;
@@ -41,22 +57,41 @@ struct Jac {
   uint32_t X, Y, Z;  // Z == 0 is the point at infinity
 };
 
+// Canonical arithmetic mod p < 2^31, a conditional subtraction as min().
+__device__ __forceinline__ uint32_t fadd(uint32_t a, uint32_t b,
+                                         uint32_t p) {
+  const uint32_t s = a + b;
+  return min(s, s - p);
+}
+
+__device__ __forceinline__ uint32_t fsub(uint32_t a, uint32_t b,
+                                         uint32_t p) {
+  const uint32_t d = a - b;
+  return min(d, d + p);
+}
+
+__device__ __forceinline__ uint32_t fmul(uint32_t a, uint32_t b,
+                                         MontParams f) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * f.n_prime;
+  const uint32_t r = (uint32_t)((t + (uint64_t)m * f.p) >> 32);
+  return min(r, r - f.p);
+}
+
 __device__ __forceinline__ Jac jac_double(const CurveConsts& k, Jac a) {
   const MontParams f = k.f;
   const uint32_t p = f.p;
-  uint32_t A = mont_mul(a.X, a.X, f);
-  uint32_t B = mont_mul(a.Y, a.Y, f);
-  uint32_t Cc = mont_mul(B, B, f);
-  uint32_t t = mont_add(a.X, B, p);
-  uint32_t D = mont_mul(
-      k.c2, mont_sub(mont_sub(mont_mul(t, t, f), A, p), Cc, p), f);
-  uint32_t E = mont_mul(k.c3, A, f);
-  uint32_t Ff = mont_mul(E, E, f);
+  uint32_t A = fmul(a.X, a.X, f);
+  uint32_t B = fmul(a.Y, a.Y, f);
+  uint32_t Cc = fmul(B, B, f);
+  uint32_t t = fadd(a.X, B, p);
+  uint32_t D = fmul(k.c2, fsub(fsub(fmul(t, t, f), A, p), Cc, p), f);
+  uint32_t E = fmul(k.c3, A, f);
+  uint32_t Ff = fmul(E, E, f);
   Jac r;
-  r.X = mont_sub(Ff, mont_mul(k.c2, D, f), p);
-  r.Y = mont_sub(mont_mul(E, mont_sub(D, r.X, p), f), mont_mul(k.c8, Cc, f),
-                 p);
-  r.Z = mont_mul(k.c2, mont_mul(a.Y, a.Z, f), f);
+  r.X = fsub(Ff, fmul(k.c2, D, f), p);
+  r.Y = fsub(fmul(E, fsub(D, r.X, p), f), fmul(k.c8, Cc, f), p);
+  r.Z = fmul(k.c2, fmul(a.Y, a.Z, f), f);
   return r;
 }
 
@@ -67,131 +102,176 @@ __device__ __forceinline__ Jac jac_add(const CurveConsts& k, Jac a, Jac b) {
   if (b.Z == 0) return a;
   const MontParams f = k.f;
   const uint32_t p = f.p;
-  uint32_t Z1Z1 = mont_mul(a.Z, a.Z, f);
-  uint32_t Z2Z2 = mont_mul(b.Z, b.Z, f);
-  uint32_t U1 = mont_mul(a.X, Z2Z2, f);
-  uint32_t U2 = mont_mul(b.X, Z1Z1, f);
-  uint32_t S1 = mont_mul(a.Y, mont_mul(b.Z, Z2Z2, f), f);
-  uint32_t S2 = mont_mul(b.Y, mont_mul(a.Z, Z1Z1, f), f);
-  uint32_t H = mont_sub(U2, U1, p);
-  uint32_t r = mont_sub(S2, S1, p);
+  uint32_t Z1Z1 = fmul(a.Z, a.Z, f);
+  uint32_t Z2Z2 = fmul(b.Z, b.Z, f);
+  uint32_t U1 = fmul(a.X, Z2Z2, f);
+  uint32_t U2 = fmul(b.X, Z1Z1, f);
+  uint32_t S1 = fmul(a.Y, fmul(b.Z, Z2Z2, f), f);
+  uint32_t S2 = fmul(b.Y, fmul(a.Z, Z1Z1, f), f);
+  uint32_t H = fsub(U2, U1, p);
+  uint32_t r = fsub(S2, S1, p);
   if (H == 0) {
     if (r == 0) return jac_double(k, a);
     return Jac{k.one, k.one, 0u};
   }
-  uint32_t HH = mont_mul(H, H, f);
-  uint32_t HHH = mont_mul(H, HH, f);
-  uint32_t V = mont_mul(U1, HH, f);
+  uint32_t HH = fmul(H, H, f);
+  uint32_t HHH = fmul(H, HH, f);
+  uint32_t V = fmul(U1, HH, f);
   Jac out;
-  out.X = mont_sub(mont_sub(mont_mul(r, r, f), HHH, p),
-                   mont_mul(k.c2, V, f), p);
-  out.Y = mont_sub(mont_mul(r, mont_sub(V, out.X, p), f),
-                   mont_mul(S1, HHH, f), p);
-  out.Z = mont_mul(mont_mul(a.Z, b.Z, f), H, f);
+  out.X = fsub(fsub(fmul(r, r, f), HHH, p), fadd(V, V, p), p);
+  out.Y = fsub(fmul(r, fsub(V, out.X, p), f), fmul(S1, HHH, f), p);
+  out.Z = fmul(fmul(a.Z, b.Z, f), H, f);
   return out;
 }
 
-// Reduce one Jac per thread to sh[0] (blockDim.x == THREADS, a power of 2).
-__device__ __forceinline__ Jac block_reduce(const CurveConsts& k, Jac acc,
-                                            uint32_t* sh) {
-  uint32_t* sx = sh;
-  uint32_t* sy = sh + THREADS;
-  uint32_t* sz = sh + 2 * THREADS;
+// a + (x2, y2) for an affine, finite point (madd-2007-bl: 7 products and 4
+// squares), complete: an accumulator at infinity takes the point, equal
+// points double, inverse points give infinity.
+__device__ __forceinline__ Jac jac_madd(const CurveConsts& k, Jac a,
+                                        uint32_t x2, uint32_t y2) {
+  if (a.Z == 0) return Jac{x2, y2, k.one};
+  const MontParams f = k.f;
+  const uint32_t p = f.p;
+  const uint32_t Z1Z1 = fmul(a.Z, a.Z, f);
+  const uint32_t U2 = fmul(x2, Z1Z1, f);
+  const uint32_t S2 = fmul(y2, fmul(a.Z, Z1Z1, f), f);
+  const uint32_t H = fsub(U2, a.X, p);
+  const uint32_t r2 = fsub(S2, a.Y, p);  // r / 2
+  if (H == 0) {
+    if (r2 == 0) return jac_double(k, a);
+    return Jac{k.one, k.one, 0u};
+  }
+  const uint32_t HH = fmul(H, H, f);
+  const uint32_t I = fadd(fadd(HH, HH, p), fadd(HH, HH, p), p);
+  const uint32_t J = fmul(H, I, f);
+  const uint32_t r = fadd(r2, r2, p);
+  const uint32_t V = fmul(a.X, I, f);
+  Jac out;
+  out.X = fsub(fsub(fmul(r, r, f), J, p), fadd(V, V, p), p);
+  const uint32_t YJ = fmul(a.Y, J, f);
+  out.Y = fsub(fmul(r, fsub(V, out.X, p), f), fadd(YJ, YJ, p), p);
+  const uint32_t ZH = fadd(a.Z, H, p);
+  out.Z = fsub(fsub(fmul(ZH, ZH, f), Z1Z1, p), HH, p);
+  return out;
+}
+
+__device__ __forceinline__ Jac shfl_down(Jac a, int off, int width) {
+  return Jac{__shfl_down_sync(0xffffffffu, a.X, off, width),
+             __shfl_down_sync(0xffffffffu, a.Y, off, width),
+             __shfl_down_sync(0xffffffffu, a.Z, off, width)};
+}
+
+// Sum one Jac per thread of the block into thread 0's return value:
+// shared memory down to one warp (each level in its own slots, so one
+// barrier a level), then shuffles.
+__device__ __forceinline__ Jac block_sum(const CurveConsts& k, Jac acc) {
+  __shared__ uint32_t sx[kThreads], sy[kThreads], sz[kThreads];
   const int tid = threadIdx.x;
-  sx[tid] = acc.X;
-  sy[tid] = acc.Y;
-  sz[tid] = acc.Z;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      Jac o = jac_add(k, Jac{sx[tid], sy[tid], sz[tid]},
-                      Jac{sx[tid + s], sy[tid + s], sz[tid + s]});
-      sx[tid] = o.X;
-      sy[tid] = o.Y;
-      sz[tid] = o.Z;
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
+    const int slot = kThreads - 2 * s + (tid - s);  // level s's s slots
+    if (tid >= s && tid < 2 * s) {
+      sx[slot] = acc.X;
+      sy[slot] = acc.Y;
+      sz[slot] = acc.Z;
     }
     __syncthreads();
-  }
-  return Jac{sx[0], sy[0], sz[0]};
-}
-
-// grid (n_tiles, B); each block sums the terms of tile * THREADS * ppt ..
-// (tile + 1) * THREADS * ppt - 1 into partials[:, b, tile].
-__global__ void commit_tiles_kernel(const long long* __restrict__ scalars,
-                                    const long long* __restrict__ tx,
-                                    const long long* __restrict__ ty,
-                                    const bool* __restrict__ tinf, int W,
-                                    int nb, int L, int wb, int ppt,
-                                    CurveConsts k,
-                                    uint32_t* __restrict__ partials,
-                                    int n_tiles) {
-  __shared__ uint32_t sh[3 * THREADS];
-  const int b = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int B = gridDim.y;
-  Jac acc{k.one, k.one, 0u};
-  const long long base = (long long)tile * THREADS * ppt;
-  for (int j = 0; j < ppt; ++j) {
-    const long long i = base + (long long)j * THREADS + threadIdx.x;
-    if (i >= L) break;
-    const uint32_t s = (uint32_t)scalars[(size_t)b * L + i];
-    for (int w = 0; w < W; ++w) {
-      const uint32_t d = (s >> (w * wb)) & (uint32_t)(nb - 1);
-      const size_t idx = ((size_t)w * nb + d) * L + i;
-      if (!tinf[idx])
-        acc = jac_add(k, acc, Jac{(uint32_t)tx[idx], (uint32_t)ty[idx],
-                                  k.one});
+    if (tid < s) {
+      const int o = kThreads - 2 * s + tid;
+      acc = jac_add(k, acc, Jac{sx[o], sy[o], sz[o]});
     }
   }
-  Jac sum = block_reduce(k, acc, sh);
-  if (threadIdx.x == 0) {
-    partials[((size_t)0 * B + b) * n_tiles + tile] = sum.X;
-    partials[((size_t)1 * B + b) * n_tiles + tile] = sum.Y;
-    partials[((size_t)2 * B + b) * n_tiles + tile] = sum.Z;
-  }
+  if (tid < 32)
+    for (int off = 16; off > 0; off >>= 1)
+      acc = jac_add(k, acc, shfl_down(acc, off, 32));
+  return acc;
 }
 
-// grid (B); folds partials[:, b, :] into out[:, b] (int64 X, Y, Z).
-__global__ void fold_partials_kernel(const uint32_t* __restrict__ partials,
-                                     int n_tiles, CurveConsts k,
-                                     long long* __restrict__ out) {
-  __shared__ uint32_t sh[3 * THREADS];
-  const int b = blockIdx.x;
-  const int B = gridDim.x;
+// grid (B * n_tiles); block x = b + B * tile sums commitment b's terms over
+// the points [L * tile / n_tiles, L * (tile + 1) / n_tiles) into
+// partials[:, b, tile]; the last block folds partials into out (3, B).
+__global__ void __launch_bounds__(kThreads)
+    commit_many_kernel(const uint32_t* __restrict__ scalars,
+                       const unsigned long long* __restrict__ table,
+                       long long sw, long long sd, long long si, int W,
+                       int wb, int L, int n_tiles, CurveConsts k,
+                       uint32_t* partials, unsigned* ticket,
+                       long long* __restrict__ out) {
+  const int B = gridDim.x / n_tiles;
+  const int b = blockIdx.x % B;
+  const int tile = blockIdx.x / B;
+  const int tid = threadIdx.x;
+  const uint32_t dmask = (1u << wb) - 1;
+  const int lo = (int)((long long)L * tile / n_tiles);
+  const int hi = (int)((long long)L * (tile + 1) / n_tiles);
   Jac acc{k.one, k.one, 0u};
-  for (int t = threadIdx.x; t < n_tiles; t += THREADS) {
-    Jac q{partials[((size_t)0 * B + b) * n_tiles + t],
-          partials[((size_t)1 * B + b) * n_tiles + t],
-          partials[((size_t)2 * B + b) * n_tiles + t]};
-    acc = jac_add(k, acc, q);
+  for (int i = lo + tid; i < hi; i += kThreads) {
+    // the low word of the int64 scalar (b, i)
+    const uint32_t s = scalars[2 * ((size_t)b * L + i)];
+    for (int w0 = 0; w0 < W; w0 += 8) {
+      unsigned long long e[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int w = w0 + j;
+        const uint32_t d = w < W ? (s >> (w * wb)) & dmask : 0u;
+        e[j] = d ? table[w * sw + d * sd + i * si] : kInfinity;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if ((uint32_t)e[j] != kInfinity)
+          acc = jac_madd(k, acc, (uint32_t)e[j], (uint32_t)(e[j] >> 32));
+    }
   }
-  Jac sum = block_reduce(k, acc, sh);
-  if (threadIdx.x == 0) {
-    out[0 * B + b] = sum.X;
-    out[1 * B + b] = sum.Y;
-    out[2 * B + b] = sum.Z;
+  acc = block_sum(k, acc);
+  __shared__ bool last;
+  if (tid == 0) {
+    partials[(0 * (size_t)B + b) * n_tiles + tile] = acc.X;
+    partials[(1 * (size_t)B + b) * n_tiles + tile] = acc.Y;
+    partials[(2 * (size_t)B + b) * n_tiles + tile] = acc.Z;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // groups of G lanes fold one commitment each: lane j adds tiles j, j + G,
+  // ... in order, then the group's lanes by shuffles
+  int G = 32;
+  while (G > 1 && G * B > kThreads) G >>= 1;
+  for (int b0 = 0; b0 < B; b0 += kThreads / G) {
+    const int bb = b0 + tid / G;
+    Jac sum{k.one, k.one, 0u};
+    if (bb < B)
+      for (int t = tid % G; t < n_tiles; t += G)
+        sum = jac_add(k, sum,
+                      Jac{__ldcg(partials + (0 * (size_t)B + bb) * n_tiles + t),
+                          __ldcg(partials + (1 * (size_t)B + bb) * n_tiles + t),
+                          __ldcg(partials + (2 * (size_t)B + bb) * n_tiles + t)});
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum = jac_add(k, sum, shfl_down(sum, off, G));
+    if (bb < B && tid % G == 0) {
+      out[0 * B + bb] = sum.X;
+      out[1 * B + bb] = sum.Y;
+      out[2 * B + bb] = sum.Z;
+    }
+  }
+  if (tid == 0) *ticket = 0;
 }
 
-// scalars (B, L) int64 standard form; tx, ty (W, nb, L) int64 Montgomery;
-// tinf (W, nb, L) bool; partials (3, B, n_tiles) 32-bit scratch with
-// n_tiles = ceil(L / (THREADS * ppt)); out (3, B) int64.
-extern "C" int commit_many_launch(const void* scalars, const void* tx,
-                                  const void* ty, const void* tinf, int B,
-                                  int W, int nb, int L, int wb, unsigned p,
+// scalars (B, L) int64 standard form; table: the packed entries, entry
+// (w, d, i) at word w * sw + d * sd + i * si; W windows of wb bits
+// (W * wb <= 32); partials (3, B, n_tiles) uint32 scratch; ticket one
+// uint32 that is 0 between launches; out (3, B) int64.
+extern "C" int commit_many_launch(const void* scalars, const void* table,
+                                  long long sw, long long sd, long long si,
+                                  int B, int W, int wb, int L, unsigned p,
                                   unsigned n_prime, unsigned one,
                                   unsigned c2, unsigned c3, unsigned c8,
-                                  void* partials, int n_tiles, int ppt,
+                                  void* partials, int n_tiles, void* ticket,
                                   void* out, void* stream) {
   CurveConsts k{MontParams{p, n_prime}, one, c2, c3, c8};
-  cudaStream_t st = (cudaStream_t)stream;
-  commit_tiles_kernel<<<dim3(n_tiles, B), THREADS, 0, st>>>(
-      (const long long*)scalars, (const long long*)tx, (const long long*)ty,
-      (const bool*)tinf, W, nb, L, wb, ppt, k, (uint32_t*)partials,
-      n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fold_partials_kernel<<<B, THREADS, 0, st>>>((const uint32_t*)partials,
-                                              n_tiles, k, (long long*)out);
+  commit_many_kernel<<<B * n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)scalars, (const unsigned long long*)table, sw, sd, si,
+      W, wb, L, n_tiles, k, (uint32_t*)partials, (unsigned*)ticket,
+      (long long*)out);
   return (int)cudaGetLastError();
 }

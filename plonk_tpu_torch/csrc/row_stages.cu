@@ -4,61 +4,295 @@
 // row_stages from plonk_tpu/ops/ntt.py:153-160).
 //
 // Computes, for each C-wide row of a (R, C) array of Montgomery words, all
-// log2(C) radix-2 DIT stages with butterfly distance half < C, exactly as
-// the TPU kernel does: at stage s (half = 2^s) the low lane j of a pair
-// becomes y[j] + y[j+half] * tw[s][j] and the high lane j+half becomes
-// y[j] - y[j+half] * tw[s][j+half]. The twiddle is read by lane, like the
-// TPU kernel's lane vector, so any (log2 C, C) table gives the same words.
+// log2(C) radix-2 DIT stages with butterfly distance half < C, as the TPU
+// kernel does: at stage s (half = 2^s) the low lane j of a pair becomes
+// y[j] + y[j+half] * tw[s][j] and the high lane j+half becomes
+// y[j] - y[j+half] * tw[s][j+half]. The wrapper accepts only lane-periodic
+// tables, tw[s][j] == tw[s][j mod 2^s] (every table ops/ntt.py makes), so
+// both lanes of a pair share one twiddle and one Montgomery product: the
+// kernel reads the compact table of C - 1 words, stage s's 2^s distinct
+// values at offset 2^s - 1.
 //
 // Bound on the H100: device memory. Each row is read once and written once
-// (8 bytes of value per 31-bit word; the port's int64 I/O moves 16); the
-// log2(C) stages in between cost log2(C)/2 Montgomery products per word,
-// below the card's integer rate, plus one block barrier per stage.
-// Design: one block per row, C/2 threads, the row kept in shared memory
-// (4 KB at C = 1024) for all stages, one butterfly per thread per stage.
-// The twiddle table (40 KB at C = 1024) is shared by all rows and stays in
-// L2. The TPU kernel reached partners with lane rolls; here a thread
-// addresses its pair in shared memory directly.
+// (4 bytes of value per 31-bit word; the port's int64 I/O moves 8, a floor
+// above the values' bound); the log2(C) stages in between cost C/2
+// Montgomery products per stage and row, below the card's integer rate.
+//
+// Design. The TPU kernel ran one stage at a time over lane vectors. Here a
+// block of 256 threads takes tiles of 2048 words (2048 / C whole rows) and
+// walks them grid-stride, with the grid at the SM count times the resident
+// blocks, so that any row count fills the card evenly. A tile's positions
+// q are bits: the element index at bits [0, S), the row in the tile above.
+// The stages run in radix-8 register rounds: thread g holds the 8 positions
+// of group g that differ in three q bits and runs the three stages of those
+// bits on its registers; the tile goes through shared memory between
+// rounds (4 rounds and 3 barriers at C = 1024 instead of 10 barriers; S mod
+// 3 stages take a shorter first round whose spare register bits take the
+// next q bits). The host fixes each round's positions and passes them in
+// the launch's __grid_constant__ geometry. The first round's 8 words are
+// neighbours, read with four 16-byte loads; the last round stores them.
+// Words stay below 2p between stages (Harvey's lazy butterflies, for
+// p < 2^30) and become canonical at the store. The compact table is copied
+// to shared memory once per block, and a round reads the 7 distinct
+// twiddles of its 12 butterflies. Shared memory is swizzled
+// (q ^ (q >> 5) & 31) and the group index is spread over q bits of
+// distinct residues mod 5, so that a warp's 32 accesses hit 32 banks in
+// every round. The SM count and the occupancy are queried once per device.
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "mont.cuh"
 
-__global__ void row_stages_kernel(const long long* __restrict__ y,
-                                  const long long* __restrict__ tw,
-                                  long long* __restrict__ out, int C, int S,
-                                  MontParams f) {
-  extern __shared__ uint32_t row[];
-  const size_t base = (size_t)blockIdx.x * C;
-  for (int j = threadIdx.x; j < C; j += blockDim.x)
-    row[j] = (uint32_t)y[base + j];
-  __syncthreads();
+constexpr int kThreads = 256;
+constexpr int kTileBits = 11;
+constexpr int kTileWords = 1 << kTileBits;  // 8 a thread
+constexpr int kBlocksPerSm = 8;             // blocks launched per SM, at most
+constexpr int kMaxDevices = 64;
+constexpr int kMaxRounds = 4;               // ceil(log2(1024) / 3)
+constexpr int kGroupBits = 8;               // log2(kThreads)
 
-  const int t = threadIdx.x;  // butterfly index in [0, C/2)
-  for (int s = 0; s < S; ++s) {
-    const int half = 1 << s;
-    const int lo = ((t >> s) << (s + 1)) | (t & (half - 1));
-    const int hi = lo + half;
-    const uint32_t a = row[lo];
-    const uint32_t b = row[hi];
-    const uint32_t tw_lo = (uint32_t)tw[(size_t)s * C + lo];
-    const uint32_t tw_hi = (uint32_t)tw[(size_t)s * C + hi];
-    row[lo] = mont_add(a, mont_mul(b, tw_lo, f), f.p);
-    row[hi] = mont_sub(a, mont_mul(b, tw_hi, f), f.p);
-    __syncthreads();
-  }
+// The tile positions of a round, fixed by the host: register k of group g
+// holds position base | qoff[k], where base puts bit i of g on q bit
+// gpos[i]. The low five bits of g go to q bits of distinct residues mod 5,
+// which the shared-memory swizzle turns into distinct banks.
+struct RoundPlan {
+  int b, glo;           // stage bits in registers; element bit of reg 0
+  uint32_t qoff[8];     // tile position of register k (base = 0)
+  uint32_t soff[8];     // its shared-memory word, swz(qoff[k])
+  int gpos[kGroupBits];
+};
 
-  for (int j = threadIdx.x; j < C; j += blockDim.x)
-    out[base + j] = (long long)row[j];
+struct Geometry {
+  int S;      // stages: log2 C
+  int rbits;  // log2 of a tile's rows, kTileBits - S
+  int nr;     // rounds; plan[r] holds element bits glo .. glo + b - 1
+  RoundPlan plan[kMaxRounds];
+};
+
+__host__ __device__ __forceinline__ uint32_t swz(uint32_t q) {
+  return q ^ ((q >> 5) & 31);
 }
 
-// y, out: (R, C) int64; tw: (S, C) int64 with S = log2(C), 2 <= C <= 1024.
+// The tile position of register 0 for group index g.
+__device__ __forceinline__ uint32_t group_base(const RoundPlan& R,
+                                               uint32_t g) {
+  uint32_t base = 0;
+#pragma unroll
+  for (int i = 0; i < kGroupBits; ++i) base |= (g >> i & 1u) << R.gpos[i];
+  return base;
+}
+
+// a mod m for a < 2m.
+__device__ __forceinline__ uint32_t csub(uint32_t a, uint32_t m) {
+  return min(a, a - m);
+}
+
+// a * b / 2^32 mod p, below 2p for a < 4p and b < p (no final
+// subtraction): (4p * p + 2^32 p) / 2^32 < 2p when 4p < 2^32.
+__device__ __forceinline__ uint32_t mul_lazy(uint32_t a, uint32_t b,
+                                             MontParams f) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * f.n_prime;
+  return (uint32_t)((t + (uint64_t)m * f.p) >> 32);
+}
+
+// The B DIT stages of a round on registers v (register bit e holds element
+// bit glo + e, e < B): one lazy product per butterfly, the lane twiddle of
+// stage s at lane j read from tw[2^s - 1 + (j mod 2^s)]. ebase is the
+// element index of register 0; stage e's twiddle depends only on the
+// element bits below it, so 2^e reads serve its 4 butterflies.
+template <int B>
+__device__ __forceinline__ void dit_round(uint32_t (&v)[8],
+                                          const uint32_t* tw, int glo,
+                                          uint32_t ebase, MontParams f) {
+  const uint32_t p2 = f.p << 1;
+#pragma unroll
+  for (int e = 0; e < B; ++e) {
+    const int s = glo + e;
+    const uint32_t mask = (1u << s) - 1;
+    uint32_t w[4];
+#pragma unroll
+    for (int m = 0; m < (1 << e); ++m)
+      w[m] = tw[mask + ((ebase | ((uint32_t)m << glo)) & mask)];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k & (1 << e)) continue;
+      const int h = k | (1 << e);
+      const uint32_t u = mul_lazy(v[h], w[k & ((1 << e) - 1)], f);
+      v[h] = csub(v[k] - u + p2, p2);
+      v[k] = csub(v[k] + u, p2);
+    }
+  }
+}
+
+// v[k] = the word at position base0 + k of tile `tile` (0 past the rows);
+// returns how many of the tile's positions hold words.
+__device__ __forceinline__ uint32_t load_tile(uint32_t (&v)[8],
+                                              const long long* y,
+                                              long long tile, long long R,
+                                              int S, int rbits,
+                                              uint32_t base0, bool vec) {
+  const long long left = R - (tile << rbits);
+  const uint32_t valid =
+      left >= (1ll << rbits) ? kTileWords : (uint32_t)left << S;
+  const long long* src = y + ((size_t)tile << kTileBits) + base0;
+  if (vec) {
+#pragma unroll
+    for (int k = 0; k < 8; k += 2) {
+      longlong2 x = make_longlong2(0, 0);
+      if (base0 + k < valid) x = *reinterpret_cast<const longlong2*>(src + k);
+      v[k] = (uint32_t)x.x;
+      v[k + 1] = (uint32_t)x.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = base0 + k < valid ? (uint32_t)src[k] : 0u;
+  }
+  return valid;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    row_stages_kernel(const long long* __restrict__ y,
+                      const uint32_t* __restrict__ tw,
+                      long long* __restrict__ out, long long R,
+                      const __grid_constant__ Geometry G, MontParams f) {
+  __shared__ uint32_t sm[kTileWords];
+  __shared__ uint32_t tws[kTileWords / 2];  // C - 1 <= 1023 words
+  const int C = 1 << G.S;
+  const long long tiles = (R + (1ll << G.rbits) - 1) >> G.rbits;
+  const uint32_t g = threadIdx.x;
+  const bool vec = ((reinterpret_cast<uintptr_t>(y) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const RoundPlan& RL = G.plan[G.nr - 1];
+  const uint32_t base0 = group_base(G.plan[0], g);  // its qoff[k] == k
+  const uint32_t baseL = group_base(RL, g);
+  const bool vecL = vec && RL.qoff[1] == 1;
+
+  // the first tile's words go out before the twiddles are copied
+  uint32_t v[8];
+  long long tile = blockIdx.x;
+  uint32_t valid = 0;  // positions q < valid hold words
+  if (tile < tiles) valid = load_tile(v, y, tile, R, G.S, G.rbits, base0, vec);
+  for (int i = threadIdx.x; i < C - 1; i += kThreads) tws[i] = __ldg(tw + i);
+  __syncthreads();
+
+  for (; tile < tiles; tile += gridDim.x) {
+    long long* dst = out + ((size_t)tile << kTileBits);
+    for (int r = 0; r < G.nr; ++r) {
+      const RoundPlan& P = G.plan[r];
+      const bool last = r == G.nr - 1;
+      const uint32_t base = r == 0 ? base0 : (last ? baseL : group_base(P, g));
+      const uint32_t sbase = swz(base);
+      if (r > 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = sm[sbase ^ P.soff[k]];
+      }
+      const uint32_t ebase = base & (C - 1);
+      switch (P.b) {
+        case 1: dit_round<1>(v, tws, P.glo, ebase, f); break;
+        case 2: dit_round<2>(v, tws, P.glo, ebase, f); break;
+        default: dit_round<3>(v, tws, P.glo, ebase, f); break;
+      }
+      if (last) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = csub(v[k], f.p);
+        if (vecL) {
+#pragma unroll
+          for (int k = 0; k < 8; k += 2)
+            if ((baseL | RL.qoff[k]) < valid)
+              *reinterpret_cast<longlong2*>(dst + (baseL | RL.qoff[k])) =
+                  make_longlong2((long long)v[k], (long long)v[k + 1]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if ((baseL | RL.qoff[k]) < valid)
+              dst[baseL | RL.qoff[k]] = (long long)v[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) sm[sbase ^ P.soff[k]] = v[k];
+      }
+      __syncthreads();  // the next round (or tile) reads what this wrote
+    }
+    if (tile + gridDim.x < tiles)
+      valid = load_tile(v, y, tile + gridDim.x, R, G.S, G.rbits, base0, vec);
+  }
+}
+
+// The rounds of S stages on a tile of kTileBits q bits: 3 stage bits each
+// from the top, S mod 3 (or 3) at the bottom; a shorter first round's spare
+// register bits take the lowest free q bits.
+static Geometry row_geom(int S) {
+  Geometry G;
+  G.S = S;
+  G.rbits = kTileBits - S;
+  G.nr = (S + 2) / 3;
+  const int b0 = S - 3 * (G.nr - 1);
+  for (int grp = 0; grp < G.nr; ++grp) {
+    RoundPlan& R = G.plan[grp];
+    R.b = grp == 0 ? b0 : 3;
+    R.glo = grp == 0 ? 0 : b0 + 3 * (grp - 1);
+    uint32_t used = 0;
+    int qpos[3];
+    for (int e = 0; e < 3; ++e) {
+      qpos[e] = R.glo + e;
+      if (e >= R.b) {  // a spare register bit: the lowest free q bit
+        qpos[e] = 0;
+        while ((used >> qpos[e] & 1) ||
+               (qpos[e] >= R.glo && qpos[e] < R.glo + R.b))
+          ++qpos[e];
+      }
+      used |= 1u << qpos[e];
+    }
+    for (int k = 0; k < 8; ++k) {
+      R.qoff[k] = ((k & 1u) << qpos[0]) | ((k >> 1 & 1u) << qpos[1]) |
+                  ((k >> 2 & 1u) << qpos[2]);
+      R.soff[k] = swz(R.qoff[k]);
+    }
+    int i = 0;
+    for (int r = 0; r < 5; ++r)
+      for (int pos = r; pos < 10; pos += 5)
+        if (!(used >> pos & 1)) {
+          R.gpos[i++] = pos;
+          used |= 1u << pos;
+          break;
+        }
+    for (int pos = 0; pos < kTileBits; ++pos)
+      if (!(used >> pos & 1)) {
+        R.gpos[i++] = pos;
+        used |= 1u << pos;
+      }
+  }
+  return G;
+}
+
+// y, out: (R, C) int64; tw: the C - 1 uint32 words of the compact table;
+// C = 2^S, 1 <= S <= 10; p < 2^30.
 extern "C" int row_stages_launch(const void* y, const void* tw, void* out,
-                                 int R, int C, int S, unsigned p,
+                                 long long R, int S, unsigned p,
                                  unsigned n_prime, void* stream) {
-  MontParams f{p, n_prime};
-  row_stages_kernel<<<R, C / 2, C * sizeof(uint32_t),
-                      (cudaStream_t)stream>>>(
-      (const long long*)y, (const long long*)tw, (long long*)out, C, S, f);
+  static int blocks_max[kMaxDevices];  // per device, 0: not queried yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (blocks_max[dev] == 0) {  // resident blocks, at most kBlocksPerSm
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, row_stages_kernel, kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    blocks_max[dev] = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
+  }
+  const Geometry G = row_geom(S);
+  const long long tiles = (R + (1ll << G.rbits) - 1) >> G.rbits;
+  const int blocks =
+      tiles < blocks_max[dev] ? (int)tiles : blocks_max[dev];
+  row_stages_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)y, (const uint32_t*)tw, (long long*)out, R, G,
+      MontParams{p, n_prime});
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,13 @@ Port of `plonk_tpu/ops/pallas_msm.py` (TPU kernel `_commit_kernel`). The
 CUDA kernel is `csrc/commit.cu`; `commit_many_plain` beside it is the same
 sum in plain PyTorch (gathered terms + a Jacobian tree), the CPU path and
 the kernel's test oracle. Jacobian representatives differ between the two;
-their affine points are equal.
+their affine points are equal. K2 reads the table's packed copy
+(`pack_commit_table`), which `build_commit_table` attaches to a table on
+a CUDA device (`with_packed` to any other).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,8 +19,9 @@ from .curve import G1, G1J, jac_to_affine
 from .fixed_base import FixedBaseTable, _gather_terms, _tree_reduce, \
     build_fixed_base_table
 
-_THREADS = 256          # csrc/commit.cu THREADS
-_POINTS_PER_THREAD = 4
+_BLOCKS_PER_SM = 4      # K2's blocks in all: about this many per SM
+# the packed x of an infinity entry: no coordinate below p < 2^31 takes it
+INFINITY_X = 0xFFFFFFFF
 
 
 def _pad_pow2(n: int) -> int:
@@ -37,7 +42,44 @@ def build_commit_table(F, pts: G1, scalar_bits: int,
             y=torch.nn.functional.pad(tbl.y, pad),
             inf=torch.nn.functional.pad(tbl.inf, pad, value=True),
             window_bits=window_bits)
-    return tbl
+    return with_packed(tbl)
+
+
+def pack_commit_table(table: FixedBaseTable) -> torch.Tensor:
+    """K2's copy of the table: (W, nb, L) int64 words x | y << 32
+    (Montgomery form), an infinity entry x = INFINITY_X, y = 0."""
+    x = torch.where(table.inf, INFINITY_X, table.x)
+    y = torch.where(table.inf, 0, table.y)
+    return (x | (y << 32)).contiguous()
+
+
+def unpack_commit_table(packed: torch.Tensor):
+    """(x, y, inf) of a packed table; an infinity entry reads x = y = 0, as
+    build_fixed_base_table stores it."""
+    x = packed & 0xFFFFFFFF
+    inf = x == INFINITY_X
+    return (torch.where(inf, 0, x), torch.where(inf, 0, packed >> 32), inf)
+
+
+def with_packed(table: FixedBaseTable) -> FixedBaseTable:
+    """The table with its packed copy attached when it lies on a CUDA
+    device (a CPU table is returned as it is: the plain version reads x, y
+    and inf)."""
+    if table.x.device.type != "cuda" or table.packed is not None:
+        return table
+    return table._replace(packed=pack_commit_table(table))
+
+
+@functools.lru_cache(maxsize=None)
+def _ticket(device: torch.device) -> torch.Tensor:
+    """K2's last-block ticket on `device`: one word, 0 between launches
+    (the kernel's last block resets it)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def commit_many_plain(F, table: FixedBaseTable,
@@ -50,23 +92,25 @@ def commit_many_plain(F, table: FixedBaseTable,
 def commit_many(F, table: FixedBaseTable, scalars: torch.Tensor) -> G1J:
     """(B, L) standard-form scalars -> (B,) Jacobian commitments against the
     window table. A CPU tensor takes the plain version; a CUDA tensor
-    launches K2."""
+    launches K2, which reads the table's packed copy."""
     if scalars.device.type == "cpu":
         return commit_many_plain(F, table, scalars)
     dev = scalars.device
-    if dev.type != "cuda" or any(t.device != dev for t in table[:3]):
+    packed = table.packed
+    if packed is None:
+        raise ValueError("commit_many: K2 reads the table's packed copy; "
+                         "build the table with build_commit_table or attach "
+                         "it with with_packed")
+    if dev.type != "cuda" or packed.device != dev:
         raise ValueError("commit_many: scalars and table must be on one "
                          "CUDA device")
-    if (scalars.dtype != torch.int64 or table.x.dtype != torch.int64
-            or table.y.dtype != torch.int64 or table.inf.dtype != torch.bool):
-        raise TypeError("commit_many: int64 scalars/coordinates and a bool "
-                        "inf mask expected")
-    if not all(t.is_contiguous() for t in (scalars,) + tuple(table[:3])):
-        raise ValueError("commit_many: inputs must be contiguous")
-    W, nb, L = table.x.shape
+    if scalars.dtype != torch.int64 or packed.dtype != torch.int64:
+        raise TypeError("commit_many: int64 scalars and packed table "
+                        "expected")
+    if not scalars.is_contiguous():
+        raise ValueError("commit_many: scalars must be contiguous")
+    W, nb, L = packed.shape
     wb = int(table.window_bits)
-    if table.y.shape != table.x.shape or table.inf.shape != table.x.shape:
-        raise ValueError("commit_many: table arrays differ in shape")
     if nb != 1 << wb or W * wb > 32:
         raise ValueError(f"commit_many: need nb == 2^wb and W*wb <= 32 "
                          f"(W={W}, nb={nb}, wb={wb})")
@@ -74,16 +118,14 @@ def commit_many(F, table: FixedBaseTable, scalars: torch.Tensor) -> G1J:
         raise ValueError(f"commit_many: scalars must be (B >= 1, {L}), got "
                          f"{tuple(scalars.shape)}")
     B = scalars.shape[0]
-    n_tiles = -(-L // (_THREADS * _POINTS_PER_THREAD))
+    n_tiles = max(1, min(L, _sm_count(dev) * _BLOCKS_PER_SM // B))
     partials = torch.empty((3, B, n_tiles), dtype=torch.int32, device=dev)
     out = torch.empty((3, B), dtype=torch.int64, device=dev)
-    lib = kernels.library()
-    err = lib.commit_many_launch(
-        scalars.data_ptr(), table.x.data_ptr(), table.y.data_ptr(),
-        table.inf.data_ptr(), B, W, nb, L, wb, F.p, F.n_prime, F.const(1),
-        F.const(2), F.const(3), F.const(8), partials.data_ptr(), n_tiles,
-        _POINTS_PER_THREAD, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    err = kernels.library().commit_many_launch(
+        scalars.data_ptr(), packed.data_ptr(), *packed.stride(), B, W, wb,
+        L, F.p, F.n_prime, F.const(1), F.const(2), F.const(3), F.const(8),
+        partials.data_ptr(), n_tiles, _ticket(dev).data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "commit_many")
     return G1J(out[0], out[1], out[2])
 

@@ -13,7 +13,7 @@ Jacobian additions. The CUDA kernel for the batched commit is in
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -23,11 +23,14 @@ from .curve import G1, G1J, jac_add, jac_double, jac_from_affine, \
 
 class FixedBaseTable(NamedTuple):
     """Affine window-multiple table: x, y (int64) and inf (bool) of shape
-    (n_windows, n_buckets, L); row d = 0 of every window is the identity."""
+    (n_windows, n_buckets, L); row d = 0 of every window is the identity.
+    `packed` is the copy the CUDA commit kernel reads
+    (ops/commit.pack_commit_table), or None."""
     x: torch.Tensor
     y: torch.Tensor
     inf: torch.Tensor
     window_bits: int
+    packed: Optional[torch.Tensor] = None
 
     @property
     def n_windows(self) -> int:

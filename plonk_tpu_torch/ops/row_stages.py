@@ -8,8 +8,12 @@ DIT (bit-reversed -> natural), the row pass of `ops/fused_ntt.fused_ntt`.
 The CUDA kernels are `csrc/row_stages.cu` and `csrc/row_transform.cu`;
 `row_stages_plain` and `row_transform_plain` beside them are the same
 functions in plain PyTorch, the CPU path and the kernels' test oracles.
+K1 reads the compact form of its lane-periodic stage table
+(`compact_twiddles`), made once per table.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -70,21 +74,45 @@ def _check_rows(name: str, y: torch.Tensor, tw_stack: torch.Tensor) -> None:
                          f"{tuple(tw_stack.shape)}")
 
 
+@functools.lru_cache(maxsize=64)
+def compact_twiddles(tw_stack: torch.Tensor) -> torch.Tensor:
+    """K1's table: the C - 1 distinct words of a lane-periodic (log2 C, C)
+    stage table, stage s's 2^s values at offset 2^s - 1, as int32 (uint32
+    in the kernel). Refuses a table whose stage s is not periodic in 2^s
+    (tw[s][j] == tw[s][j mod 2^s]), the form that lets both lanes of a pair
+    share one product. Made once per table, which is keyed by the tensor
+    object itself: a table must not change after its first use."""
+    S, C = tw_stack.shape
+    parts = []
+    for s in range(S):
+        head = tw_stack[s, :1 << s]
+        if not torch.equal(tw_stack[s], head.repeat(C >> s)):
+            raise ValueError(f"row_stages: stage {s} of the twiddle table is "
+                             f"not periodic in 2^{s}")
+        parts.append(head)
+    if S == 0:
+        return torch.zeros(0, dtype=torch.int32, device=tw_stack.device)
+    return torch.cat(parts).to(torch.int32)
+
+
 def row_stages(p: int, n_prime: int, y: torch.Tensor,
                tw_stack: torch.Tensor) -> torch.Tensor:
     """Apply all intra-row butterfly stages to y (R, C) in one pass.
     tw_stack: (log2(C), C) per-stage lane twiddles (Montgomery form).
-    A CPU tensor takes the plain version; a CUDA tensor launches K1."""
+    A CPU tensor takes the plain version; a CUDA tensor launches K1, which
+    takes lane-periodic tables only (those of ops/ntt.py) and p < 2^30."""
     if y.device.type == "cpu":
         return row_stages_plain(p, n_prime, y, tw_stack)
     _check_rows("row_stages", y, tw_stack)
+    if p >= 1 << 30:
+        raise ValueError("row_stages: K1's lazy residues need p < 2^30")
     R, C = y.shape
     out = torch.empty_like(y)
     if R == 0:
         return out
     err = kernels.library().row_stages_launch(
-        y.data_ptr(), tw_stack.data_ptr(), out.data_ptr(), R, C,
-        C.bit_length() - 1, p, n_prime,
+        y.data_ptr(), compact_twiddles(tw_stack).data_ptr(), out.data_ptr(),
+        R, C.bit_length() - 1, p, n_prime,
         torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check_launch(err, "row_stages")
     return out

@@ -27,7 +27,7 @@ import torch
 
 from ..models import plonk_scaled as PS
 from ..ops import poly as Poly
-from ..ops.commit import commit_many
+from ..ops.commit import commit_many, with_packed
 from ..ops.curve import G1, G1J, jac_add, jac_to_affine
 from ..ops.fixed_base import FixedBaseTable
 from . import dist_ntt as DN
@@ -38,7 +38,8 @@ from .mesh import Mesh, shard_vector, unshard_vector
 def _pad_table(ctx, mesh: Mesh) -> list[FixedBaseTable]:
     """The context's window table with its point axis padded to a multiple
     of the mesh size by infinity entries (x = y = 0), stored as one
-    contiguous table per shard; cached on the context."""
+    contiguous table per shard with its packed copy for K2 on a CUDA
+    device; cached on the context."""
     D = mesh.size
     key = f"_fb_table_shards{D}"
     shards = getattr(ctx, key, None)
@@ -49,8 +50,9 @@ def _pad_table(ctx, mesh: Mesh) -> list[FixedBaseTable]:
         x = torch.nn.functional.pad(base.x, pad)
         y = torch.nn.functional.pad(base.y, pad)
         inf = torch.nn.functional.pad(base.inf, pad, value=True)
-        shards = [FixedBaseTable(*(t.to(dev).contiguous() for t in parts),
-                                 window_bits=base.window_bits)
+        shards = [with_packed(FixedBaseTable(
+                      *(t.to(dev).contiguous() for t in parts),
+                      window_bits=base.window_bits))
                   for dev, parts in zip(mesh.devices, zip(
                       *(torch.chunk(t, D, dim=-1) for t in (x, y, inf))))]
         object.__setattr__(ctx, key, shards)

@@ -33,6 +33,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 
 
 class BigFieldArg(ctypes.Structure):
@@ -64,8 +65,8 @@ def u256_arg(v: int) -> U256Arg:
 # C signature of every entry point: name -> argtypes (all return int, the
 # cudaError_t of the launch)
 _SIGNATURES = {
-    # y, tw, out, R, C, S, p, n_prime, stream
-    "row_stages_launch": [_P, _P, _P, _I, _I, _I, _U, _U, _P],
+    # y, compact uint32 twiddles, out, R, S, p, n_prime, stream
+    "row_stages_launch": [_P, _P, _P, _L, _I, _U, _U, _P],
     # y, tw, out, R, C, S, dif, p, n_prime, stream
     "row_transform_launch": [_P, _P, _P, _I, _I, _I, _I, _U, _U, _P],
     # y, tw1, twm, tw2 (uint32 tables), out, nb, n1, n2, mirror, scale,
@@ -76,10 +77,10 @@ _SIGNATURES = {
     # x, w_limbs, tw, out, R, C, K, L, limb bits, T, p, n_prime, stream
     "mont_matmul_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U,
                            _P],
-    # scalars, tx, ty, tinf, B, W, nb, L, wb, p, n_prime, one, c2, c3,
-    # c8, partials, n_tiles, points_per_thread, out, stream
-    "commit_many_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _U,
-                           _U, _U, _U, _P, _I, _I, _P, _P],
+    # scalars, packed table, its strides (3), B, W, wb, L, p, n_prime,
+    # one, c2, c3, c8, partials, n_tiles, ticket, out, stream
+    "commit_many_launch": [_P, _P, _L, _L, _L, _I, _I, _I, _I, _U, _U, _U,
+                           _U, _U, _U, _P, _I, _P, _P, _P],
     # y, packed twiddle powers, out, R, C, S, dif, field, scale, scaled,
     # stream
     "big_row_launch": [_P, _P, _P, _I, _I, _I, _I, BigFieldArg, U256Arg, _I,
