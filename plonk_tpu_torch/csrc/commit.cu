@@ -46,6 +46,7 @@
 #include "mont.cuh"
 
 constexpr int kThreads = 256;
+constexpr int kMaxWindows = 8;
 constexpr uint32_t kInfinity = 0xFFFFFFFFu;  // packed x of the identity
 
 struct CurveConsts {
@@ -124,25 +125,25 @@ __device__ __forceinline__ Jac jac_add(const CurveConsts& k, Jac a, Jac b) {
   return out;
 }
 
-// a + (x2, y2) for an affine, finite point (madd-2007-bl: 7 products and 4
-// squares), complete: an accumulator at infinity takes the point, equal
-// points double, inverse points give infinity.
+// a + the packed affine entry e, complete (madd-2007-bl: 7 products and 4
+// squares): the sentinel leaves a as it is, an accumulator at infinity
+// takes the point, inverse points give infinity (H = 0 makes Z3 = 0 in
+// the general formulas) and equal points a doubling, the one case behind
+// a branch. Written without other branches, so that the compiler can
+// schedule a term's products freely.
 __device__ __forceinline__ Jac jac_madd(const CurveConsts& k, Jac a,
-                                        uint32_t x2, uint32_t y2) {
-  if (a.Z == 0) return Jac{x2, y2, k.one};
+                                        unsigned long long e) {
   const MontParams f = k.f;
   const uint32_t p = f.p;
+  const uint32_t x2 = (uint32_t)e, y2 = (uint32_t)(e >> 32);
   const uint32_t Z1Z1 = fmul(a.Z, a.Z, f);
   const uint32_t U2 = fmul(x2, Z1Z1, f);
   const uint32_t S2 = fmul(y2, fmul(a.Z, Z1Z1, f), f);
   const uint32_t H = fsub(U2, a.X, p);
   const uint32_t r2 = fsub(S2, a.Y, p);  // r / 2
-  if (H == 0) {
-    if (r2 == 0) return jac_double(k, a);
-    return Jac{k.one, k.one, 0u};
-  }
   const uint32_t HH = fmul(H, H, f);
-  const uint32_t I = fadd(fadd(HH, HH, p), fadd(HH, HH, p), p);
+  const uint32_t HH2 = fadd(HH, HH, p);
+  const uint32_t I = fadd(HH2, HH2, p);
   const uint32_t J = fmul(H, I, f);
   const uint32_t r = fadd(r2, r2, p);
   const uint32_t V = fmul(a.X, I, f);
@@ -152,6 +153,10 @@ __device__ __forceinline__ Jac jac_madd(const CurveConsts& k, Jac a,
   out.Y = fsub(fmul(r, fsub(V, out.X, p), f), fadd(YJ, YJ, p), p);
   const uint32_t ZH = fadd(a.Z, H, p);
   out.Z = fsub(fsub(fmul(ZH, ZH, f), Z1Z1, p), HH, p);
+  if (H == 0 && r2 == 0 && a.Z != 0 && x2 != kInfinity)
+    out = jac_double(k, a);
+  if (a.Z == 0) out = Jac{x2, y2, k.one};
+  if (x2 == kInfinity) out = a;
   return out;
 }
 
@@ -186,9 +191,27 @@ __device__ __forceinline__ Jac block_sum(const CurveConsts& k, Jac acc) {
   return acc;
 }
 
+// e[w] = the packed entry of point i in window w for the digits of s, the
+// sentinel for a zero digit (row 0 is the identity: no load), a window
+// past W or a point past the tile (!live); the loads are only issued.
+__device__ __forceinline__ void load_terms(
+    unsigned long long (&e)[kMaxWindows],
+    const unsigned long long* __restrict__ table, long long sw,
+    long long sd, long long si, int W, int wb, int i, uint32_t s,
+    bool live) {
+  const uint32_t dmask = (1u << wb) - 1;
+#pragma unroll
+  for (int w = 0; w < kMaxWindows; ++w) {
+    const uint32_t d = live && w < W ? (s >> (w * wb)) & dmask : 0u;
+    e[w] = d ? __ldg(table + w * sw + d * sd + i * si) : kInfinity;
+  }
+}
+
 // grid (B * n_tiles); block x = b + B * tile sums commitment b's terms over
 // the points [L * tile / n_tiles, L * (tile + 1) / n_tiles) into
 // partials[:, b, tile]; the last block folds partials into out (3, B).
+// A thread's points are kThreads apart; the next point's entries and the
+// one after's scalar are on their way while a point's terms are added.
 __global__ void __launch_bounds__(kThreads)
     commit_many_kernel(const uint32_t* __restrict__ scalars,
                        const unsigned long long* __restrict__ table,
@@ -200,26 +223,25 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x % B;
   const int tile = blockIdx.x / B;
   const int tid = threadIdx.x;
-  const uint32_t dmask = (1u << wb) - 1;
   const int lo = (int)((long long)L * tile / n_tiles);
   const int hi = (int)((long long)L * (tile + 1) / n_tiles);
+  // the low word of the int64 scalar (b, i)
+  const uint32_t* sb = scalars + 2 * (size_t)b * L;
+  int i = lo + tid;
+  uint32_t s_next = i + kThreads < hi ? sb[2 * (i + kThreads)] : 0u;
+  unsigned long long e[kMaxWindows];
+  load_terms(e, table, sw, sd, si, W, wb, i, i < hi ? sb[2 * i] : 0u,
+             i < hi);
   Jac acc{k.one, k.one, 0u};
-  for (int i = lo + tid; i < hi; i += kThreads) {
-    // the low word of the int64 scalar (b, i)
-    const uint32_t s = scalars[2 * ((size_t)b * L + i)];
-    for (int w0 = 0; w0 < W; w0 += 8) {
-      unsigned long long e[8];
+  for (; i < hi; i += kThreads) {
+    const int i1 = i + kThreads;
+    unsigned long long e1[kMaxWindows];
+    load_terms(e1, table, sw, sd, si, W, wb, i1, s_next, i1 < hi);
+    s_next = i1 + kThreads < hi ? sb[2 * (i1 + kThreads)] : 0u;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int w = w0 + j;
-        const uint32_t d = w < W ? (s >> (w * wb)) & dmask : 0u;
-        e[j] = d ? table[w * sw + d * sd + i * si] : kInfinity;
-      }
+    for (int w = 0; w < kMaxWindows; ++w) acc = jac_madd(k, acc, e[w]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if ((uint32_t)e[j] != kInfinity)
-          acc = jac_madd(k, acc, (uint32_t)e[j], (uint32_t)(e[j] >> 32));
-    }
+    for (int w = 0; w < kMaxWindows; ++w) e[w] = e1[w];
   }
   acc = block_sum(k, acc);
   __shared__ bool last;
@@ -234,18 +256,27 @@ __global__ void __launch_bounds__(kThreads)
   if (!last) return;
   __threadfence();
   // groups of G lanes fold one commitment each: lane j adds tiles j, j + G,
-  // ... in order, then the group's lanes by shuffles
+  // ... in order (4 loads ahead), then the group's lanes by shuffles
   int G = 32;
   while (G > 1 && G * B > kThreads) G >>= 1;
   for (int b0 = 0; b0 < B; b0 += kThreads / G) {
     const int bb = b0 + tid / G;
     Jac sum{k.one, k.one, 0u};
-    if (bb < B)
-      for (int t = tid % G; t < n_tiles; t += G)
-        sum = jac_add(k, sum,
-                      Jac{__ldcg(partials + (0 * (size_t)B + bb) * n_tiles + t),
-                          __ldcg(partials + (1 * (size_t)B + bb) * n_tiles + t),
-                          __ldcg(partials + (2 * (size_t)B + bb) * n_tiles + t)});
+    for (int t0 = tid % G; bb < B && t0 < n_tiles; t0 += 4 * G) {
+      Jac q[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int t = t0 + m * G;
+        const size_t at = (size_t)bb * n_tiles + t;
+        q[m] = t < n_tiles
+                   ? Jac{__ldcg(partials + at),
+                         __ldcg(partials + (size_t)B * n_tiles + at),
+                         __ldcg(partials + 2 * (size_t)B * n_tiles + at)}
+                   : Jac{k.one, k.one, 0u};
+      }
+#pragma unroll
+      for (int m = 0; m < 4; ++m) sum = jac_add(k, sum, q[m]);
+    }
     for (int off = G / 2; off > 0; off >>= 1)
       sum = jac_add(k, sum, shfl_down(sum, off, G));
     if (bb < B && tid % G == 0) {
@@ -258,9 +289,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // scalars (B, L) int64 standard form; table: the packed entries, entry
-// (w, d, i) at word w * sw + d * sd + i * si; W windows of wb bits
-// (W * wb <= 32); partials (3, B, n_tiles) uint32 scratch; ticket one
-// uint32 that is 0 between launches; out (3, B) int64.
+// (w, d, i) at word w * sw + d * sd + i * si; W <= kMaxWindows windows of
+// wb bits (W * wb <= 32); partials (3, B, n_tiles) uint32 scratch; ticket
+// one uint32 that is 0 between launches; out (3, B) int64.
 extern "C" int commit_many_launch(const void* scalars, const void* table,
                                   long long sw, long long sd, long long si,
                                   int B, int W, int wb, int L, unsigned p,

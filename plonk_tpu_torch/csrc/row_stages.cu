@@ -152,36 +152,54 @@ __device__ __forceinline__ uint32_t load_tile(uint32_t (&v)[8],
   return valid;
 }
 
+// S is a template parameter, so that each round's stage bits, and with
+// them every shift of the butterflies and twiddle indices, are constants.
+template <int S>
 __global__ void __launch_bounds__(kThreads)
     row_stages_kernel(const long long* __restrict__ y,
                       const uint32_t* __restrict__ tw,
                       long long* __restrict__ out, long long R,
                       const __grid_constant__ Geometry G, MontParams f) {
+  constexpr int C = 1 << S;
+  constexpr int kRowBits = kTileBits - S;
+  constexpr int kRounds = (S + 2) / 3;
+  constexpr int kFirst = S - 3 * (kRounds - 1);  // stage bits of round 0
   __shared__ uint32_t sm[kTileWords];
-  __shared__ uint32_t tws[kTileWords / 2];  // C - 1 <= 1023 words
-  const int C = 1 << G.S;
-  const long long tiles = (R + (1ll << G.rbits) - 1) >> G.rbits;
+  __shared__ uint32_t tws[C];  // C - 1 words used
+  const long long tiles = (R + (1ll << kRowBits) - 1) >> kRowBits;
   const uint32_t g = threadIdx.x;
   const bool vec = ((reinterpret_cast<uintptr_t>(y) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const RoundPlan& RL = G.plan[G.nr - 1];
+  const RoundPlan& RL = G.plan[kRounds - 1];
   const uint32_t base0 = group_base(G.plan[0], g);  // its qoff[k] == k
   const uint32_t baseL = group_base(RL, g);
   const bool vecL = vec && RL.qoff[1] == 1;
 
-  // the first tile's words go out before the twiddles are copied
-  uint32_t v[8];
+  // the first tile's words go out before the twiddles are copied, and
+  // each next tile's before the current one is transformed
+  uint32_t next[8];
   long long tile = blockIdx.x;
-  uint32_t valid = 0;  // positions q < valid hold words
-  if (tile < tiles) valid = load_tile(v, y, tile, R, G.S, G.rbits, base0, vec);
+  uint32_t next_valid = 0;
+  if (tile < tiles)
+    next_valid = load_tile(next, y, tile, R, S, kRowBits, base0, vec);
   for (int i = threadIdx.x; i < C - 1; i += kThreads) tws[i] = __ldg(tw + i);
   __syncthreads();
 
   for (; tile < tiles; tile += gridDim.x) {
+    uint32_t v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = next[k];
+    const uint32_t valid = next_valid;  // positions q < valid hold words
+    if (tile + gridDim.x < tiles)
+      next_valid = load_tile(next, y, tile + gridDim.x, R, S, kRowBits,
+                             base0, vec);
     long long* dst = out + ((size_t)tile << kTileBits);
-    for (int r = 0; r < G.nr; ++r) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
       const RoundPlan& P = G.plan[r];
-      const bool last = r == G.nr - 1;
+      const bool last = r == kRounds - 1;
+      const int b = r == 0 ? kFirst : 3;
+      const int glo = r == 0 ? 0 : kFirst + 3 * (r - 1);
       const uint32_t base = r == 0 ? base0 : (last ? baseL : group_base(P, g));
       const uint32_t sbase = swz(base);
       if (r > 0) {
@@ -189,11 +207,12 @@ __global__ void __launch_bounds__(kThreads)
         for (int k = 0; k < 8; ++k) v[k] = sm[sbase ^ P.soff[k]];
       }
       const uint32_t ebase = base & (C - 1);
-      switch (P.b) {
-        case 1: dit_round<1>(v, tws, P.glo, ebase, f); break;
-        case 2: dit_round<2>(v, tws, P.glo, ebase, f); break;
-        default: dit_round<3>(v, tws, P.glo, ebase, f); break;
-      }
+      if (b == 1)
+        dit_round<1>(v, tws, glo, ebase, f);
+      else if (b == 2)
+        dit_round<2>(v, tws, glo, ebase, f);
+      else
+        dit_round<3>(v, tws, glo, ebase, f);
       if (last) {
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = csub(v[k], f.p);
@@ -215,8 +234,6 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();  // the next round (or tile) reads what this wrote
     }
-    if (tile + gridDim.x < tiles)
-      valid = load_tile(v, y, tile + gridDim.x, R, G.S, G.rbits, base0, vec);
   }
 }
 
@@ -269,30 +286,54 @@ static Geometry row_geom(int S) {
 
 // y, out: (R, C) int64; tw: the C - 1 uint32 words of the compact table;
 // C = 2^S, 1 <= S <= 10; p < 2^30.
-extern "C" int row_stages_launch(const void* y, const void* tw, void* out,
-                                 long long R, int S, unsigned p,
-                                 unsigned n_prime, void* stream) {
+template <int S>
+static cudaError_t launch(const long long* y, const uint32_t* tw,
+                          long long* out, long long R, MontParams f,
+                          cudaStream_t stream) {
   static int blocks_max[kMaxDevices];  // per device, 0: not queried yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (blocks_max[dev] == 0) {  // resident blocks, at most kBlocksPerSm
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, row_stages_kernel, kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+        &per_sm, row_stages_kernel<S>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
     blocks_max[dev] = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
   }
   const Geometry G = row_geom(S);
   const long long tiles = (R + (1ll << G.rbits) - 1) >> G.rbits;
   const int blocks =
       tiles < blocks_max[dev] ? (int)tiles : blocks_max[dev];
-  row_stages_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)y, (const uint32_t*)tw, (long long*)out, R, G,
-      MontParams{p, n_prime});
-  return (int)cudaGetLastError();
+  row_stages_kernel<S><<<blocks, kThreads, 0, stream>>>(y, tw, out, R, G, f);
+  return cudaGetLastError();
+}
+
+// y, out: (R, C) int64; tw: the C - 1 uint32 words of the compact table;
+// C = 2^S, 1 <= S <= 10; p < 2^30.
+extern "C" int row_stages_launch(const void* y, const void* tw, void* out,
+                                 long long R, int S, unsigned p,
+                                 unsigned n_prime, void* stream) {
+  const long long* y_ = (const long long*)y;
+  const uint32_t* tw_ = (const uint32_t*)tw;
+  long long* out_ = (long long*)out;
+  const MontParams f{p, n_prime};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (S) {
+    case 1: return (int)launch<1>(y_, tw_, out_, R, f, st);
+    case 2: return (int)launch<2>(y_, tw_, out_, R, f, st);
+    case 3: return (int)launch<3>(y_, tw_, out_, R, f, st);
+    case 4: return (int)launch<4>(y_, tw_, out_, R, f, st);
+    case 5: return (int)launch<5>(y_, tw_, out_, R, f, st);
+    case 6: return (int)launch<6>(y_, tw_, out_, R, f, st);
+    case 7: return (int)launch<7>(y_, tw_, out_, R, f, st);
+    case 8: return (int)launch<8>(y_, tw_, out_, R, f, st);
+    case 9: return (int)launch<9>(y_, tw_, out_, R, f, st);
+    case 10: return (int)launch<10>(y_, tw_, out_, R, f, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -19,7 +19,8 @@ from .curve import G1, G1J, jac_to_affine
 from .fixed_base import FixedBaseTable, _gather_terms, _tree_reduce, \
     build_fixed_base_table
 
-_BLOCKS_PER_SM = 4      # K2's blocks in all: about this many per SM
+_THREADS = 256          # csrc/commit.cu kThreads
+_MAX_WINDOWS = 8        # csrc/commit.cu kMaxWindows
 # the packed x of an infinity entry: no coordinate below p < 2^31 takes it
 INFINITY_X = 0xFFFFFFFF
 
@@ -111,14 +112,16 @@ def commit_many(F, table: FixedBaseTable, scalars: torch.Tensor) -> G1J:
         raise ValueError("commit_many: scalars must be contiguous")
     W, nb, L = packed.shape
     wb = int(table.window_bits)
-    if nb != 1 << wb or W * wb > 32:
-        raise ValueError(f"commit_many: need nb == 2^wb and W*wb <= 32 "
-                         f"(W={W}, nb={nb}, wb={wb})")
+    if nb != 1 << wb or W * wb > 32 or W > _MAX_WINDOWS:
+        raise ValueError(f"commit_many: need nb == 2^wb, W*wb <= 32 and at "
+                         f"most {_MAX_WINDOWS} windows (W={W}, nb={nb}, "
+                         f"wb={wb})")
     if scalars.dim() != 2 or scalars.shape[1] != L or scalars.shape[0] < 1:
         raise ValueError(f"commit_many: scalars must be (B >= 1, {L}), got "
                          f"{tuple(scalars.shape)}")
     B = scalars.shape[0]
-    n_tiles = max(1, min(L, _sm_count(dev) * _BLOCKS_PER_SM // B))
+    # point tiles: two points a thread at least, two blocks an SM at most
+    n_tiles = max(1, min(-(-L // (2 * _THREADS)), 2 * _sm_count(dev) // B))
     partials = torch.empty((3, B, n_tiles), dtype=torch.int32, device=dev)
     out = torch.empty((3, B), dtype=torch.int64, device=dev)
     err = kernels.library().commit_many_launch(

@@ -14,7 +14,7 @@ import torch
 from plonk_tpu_torch.utils.params import SCALED_CURVE, SCALED_FQ, SCALED_FR
 from plonk_tpu_torch.models import plonk_scaled as PS
 from plonk_tpu_torch.models.plonk import POINT_FIELDS, SCALAR_FIELDS
-from plonk_tpu_torch.models.synthetic import square_chain_circuit
+from plonk_tpu_torch.models.synthetic import edge_rows, square_chain_circuit
 from plonk_tpu_torch.ops import commit as CM
 from plonk_tpu_torch.ops import curve as C
 from plonk_tpu_torch.ops import ntt as N
@@ -34,18 +34,38 @@ def dev():
     return torch.device("cuda:0")
 
 
-@pytest.mark.parametrize("R,C", [(16, 256), (8, 1024), (3, 2), (1280, 1024)])
+@pytest.mark.parametrize("C", [1 << s for s in range(1, 11)])
+@pytest.mark.parametrize("R", [1, 3, 576, 1280])
 def test_row_stages_kernel_matches_plain(dev, R, C):
+    """K1 on random rows and on edge rows (zeros, r - 1, and pairs whose
+    first sum is exactly r, K1's lazy residues at their edge), one launch
+    a call."""
     n = C << (R - 1).bit_length()      # a transform size with R rows or more
     w = SCALED_FR.root_of_unity(n)
     intra, _ = N._device_tables(Fr, w, n, C, dev)
-    g = torch.Generator(device="cpu").manual_seed(R + C)
-    y = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    rng = np.random.default_rng(R + C)
+    for vals in (rng.integers(0, Fr.p, size=(R, C)),
+                 edge_rows(Fr.p, R, C, rng)):
+        y = torch.as_tensor(vals, device=dev)
+        before = kernels.LAUNCHES["row_stages"]
+        got = row_stages(Fr.p, Fr.n_prime, y, intra)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["row_stages"] == before + 1
+        assert torch.equal(got, row_stages_plain(Fr.p, Fr.n_prime, y, intra))
+
+
+def test_row_stages_kernel_refuses_other_tables(dev):
+    """K1 shares a twiddle between a pair's lanes: a table that is not
+    lane-periodic is refused on the card, before any launch."""
+    intra, _ = N._device_tables(Fr, SCALED_FR.root_of_unity(1 << 13),
+                                1 << 13, 1024, dev)
+    bad = intra.clone()
+    bad[5, 100] = bad[5, 101]
+    y = torch.zeros((2, 1024), dtype=torch.int64, device=dev)
     before = kernels.LAUNCHES["row_stages"]
-    got = row_stages(Fr.p, Fr.n_prime, y, intra)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["row_stages"] == before + 1
-    assert torch.equal(got, row_stages_plain(Fr.p, Fr.n_prime, y, intra))
+    with pytest.raises(ValueError, match="periodic"):
+        row_stages(Fr.p, Fr.n_prime, y, bad)
+    assert kernels.LAUNCHES["row_stages"] == before
 
 
 @pytest.mark.parametrize("n,batch", [(4096, 1), (4096, 3), (1 << 14, 2)])
@@ -66,26 +86,62 @@ def _assert_affine_equal(a: C.G1, b: C.G1):
     assert torch.equal(a.x, b.x) and torch.equal(a.y, b.y)
 
 
-@pytest.mark.parametrize("L,B", [(40, 3), (1000, 9), (5000, 2)])
-def test_commit_kernel_matches_plain(dev, L, B):
-    rng = np.random.default_rng(L)
+def _commit_points(rng, L):
+    """L points of the scaled curve: small multiples of the generator,
+    every third one negated, with repeats, so that equal, inverse and
+    infinity bases all occur."""
     r = SCALED_CURVE.r
-    # repeated, opposite and infinity bases exercise every case of the
-    # complete addition
     ks = rng.integers(0, 40, size=L)
     ks[1::3] = r - ks[1::3]
-    g = C.g1_generator(SCALED_CURVE, Fq, dev)
-    pts = C.g1_mul(Fq, g, torch.as_tensor(ks % r, device=dev),
-                   nbits=r.bit_length())
-    tbl = CM.build_commit_table(Fq, pts, r.bit_length())
+    g = C.g1_generator(SCALED_CURVE, Fq, "cuda:0")
+    return C.g1_mul(Fq, g, torch.as_tensor(ks % r, device="cuda:0"),
+                    nbits=r.bit_length())
+
+
+@pytest.mark.parametrize("L", [1, 40, 513, 1000, 8193, 65542])
+@pytest.mark.parametrize("B", [1, 9])
+def test_commit_kernel_matches_plain(dev, L, B):
+    """K2 against its plain version, affine-equal, with one launch a call;
+    L = 1 makes one tile of one point, L = 513 tiles of 256 and 257."""
+    rng = np.random.default_rng(L + B)
+    r = SCALED_CURVE.r
+    tbl = CM.build_commit_table(Fq, _commit_points(rng, L), r.bit_length())
+    assert tbl.packed is not None
     sc = rng.integers(0, r, size=(B, L))
     sc[0, ::5] = 0
-    sc[min(1, B - 1)] = 0
+    if B > 1:
+        sc[1] = 0
+    scalars = torch.as_tensor(sc, device=dev)
+    before = kernels.LAUNCHES["commit_many"]
+    got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
+    assert kernels.LAUNCHES["commit_many"] == before + 1
+    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
+    _assert_affine_equal(got, want)
+    if B > 1:
+        assert bool(got.inf[1])
+
+
+def test_commit_kernel_edge_batch(dev):
+    """Phase 4's edge batch: zero scalars; repeated, opposite and infinity
+    bases; scalars r, whose terms of a point sum to infinity inside one
+    thread, and 7 * 2^24 + 2^22 - 1, whose top term equals the sum of the
+    others (the mixed addition's doubling)."""
+    rng = np.random.default_rng(4)
+    r = SCALED_CURVE.r
+    tbl = CM.build_commit_table(Fq, _commit_points(rng, 4096),
+                                r.bit_length())
+    sc = rng.integers(0, r, size=(5, 4096))
+    sc[0, ::4] = 0
+    sc[1] = 0
+    sc[3] = r
+    sc[4] = 7 * 2 ** 24 + 2 ** 22 - 1
     scalars = torch.as_tensor(sc, device=dev)
     got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
     want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
     _assert_affine_equal(got, want)
-    assert bool(got.inf[min(1, B - 1)])
+    assert got.inf.tolist() == [False, True, False, True, False]
+    with pytest.raises(ValueError, match="packed"):
+        CM.commit_many(Fq, tbl._replace(packed=None), scalars)
 
 
 def test_proof_on_cuda_matches_cpu(dev):
