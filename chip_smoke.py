@@ -131,7 +131,7 @@ try:
     from plonk_tpu_torch.parallel import dist_prover as DP
     from plonk_tpu_torch.parallel import mesh as MS
     from plonk_tpu_torch.utils import kernels
-    from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FR
+    from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FQ, SCALED_FR
 except ModuleNotFoundError as exc:   # the script without the repository
     raise SystemExit(f"chip_smoke: {exc}; run it from the root of the "
                      "repository") from exc
@@ -1380,6 +1380,67 @@ def k12_bounds(k1_inputs: dict, k2_inputs: dict) -> dict:
     return bounds
 
 
+# The arithmetic under K2, timed alone: chains of dependent Montgomery
+# products, mixed additions and complete additions, built from
+# csrc/commit.cu's own device functions.
+ARITH_PROBE_CU = r"""
+#include "commit.cu"
+__global__ void arith_probe(int op, CurveConsts k, int n, uint32_t* out) {
+  uint32_t a = threadIdx.x + 5u;
+  Jac acc{threadIdx.x + 5u, 7u, 1u}, q{11u, 13u + threadIdx.x, 3u};
+  for (int i = 0; i < n; ++i) {
+    if (op == 0) a = fmul(a, 77u + i, k.f);
+    else if (op == 1)
+      acc = jac_madd(k, acc, (unsigned long long)(i + 3) << 32 | (i * 7u + 1));
+    else { acc = jac_add(k, acc, q); q.X += 1; }
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a ^ acc.X ^ acc.Y ^ acc.Z;
+}
+extern "C" int arith_probe_launch(int op, int blocks, int threads, int n,
+                                  unsigned p, unsigned n_prime, unsigned one,
+                                  void* out) {
+  CurveConsts k{MontParams{p, n_prime}, one, one, one, one};
+  arith_probe<<<blocks, threads>>>(op, k, n, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def arith_probe(dev) -> None:
+    """The dependent latency (one warp alone) and the throughput (8 blocks
+    of 256 threads an SM) of K2's Montgomery product, mixed addition and
+    complete addition, each as a chain of 2000 in every thread."""
+    import ctypes
+    src = os.path.join(kernels.BUILD_DIR, "arith_probe.cu")
+    lib_path = os.path.join(kernels.BUILD_DIR, "libarith_probe.so")
+    with open(src, "w") as f:
+        f.write(ARITH_PROBE_CU)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, "-gencode", kernels.ARCH, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-I", kernels.CSRC,
+                    "-o", lib_path, src], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    lib.arith_probe_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_uint] * 3 \
+        + [ctypes.c_void_p]
+    Fq = MontField(SCALED_FQ)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(8 * sms * 256, dtype=torch.int32, device=dev)
+    n = 2000
+    for op, name in enumerate(("Montgomery product", "mixed addition",
+                               "complete addition")):
+        def run(blocks, threads, op=op):
+            check(lib.arith_probe_launch(op, blocks, threads, n, Fq.p,
+                                         Fq.n_prime, Fq.const(1),
+                                         out.data_ptr()) == 0,
+                  "arith_probe launches")
+        one = cuda_ms(lambda: run(1, 32), reps=5, queue_ahead=True)
+        full = cuda_ms(lambda: run(8 * sms, 256), reps=5, queue_ahead=True)
+        print(f"K2 arithmetic, {name}: {one * 1e6 / n:.3f} ns dependent "
+              f"latency; {8 * sms * 256 * n / full / 1e9:.3f} per ns over "
+              f"the card (chains of {n}, CUDA events)")
+
+
 def kernels_only(dev, card: str) -> None:
     """--kernels: K1 and K2 (phases 3 and 4's checks, phase 7's times), K3
     (phase 9's checks, phase 13's times) and K6 (phase 14's checks, edge
@@ -1405,6 +1466,14 @@ def kernels_only(dev, card: str) -> None:
               "queued ahead): " + ", ".join(f"{k} {v:.6f} ms"
                                             for k, v in ms.items()))
     k12_bounds(k1_inputs, k2_inputs)
+    for name, (y, _) in k1_inputs.items():
+        print(f"row_stages {name}: a copy of the same int64 words "
+              f"(y.clone()) {cuda_ms(y.clone, reps=100, queue_ahead=True):.6f} "
+              "ms (CUDA events, queued ahead)")
+    arith_probe(dev)
+    sass = sass_opcodes(K2_ENTRY, ("IMAD.WIDE", "IMAD.HI", "IMAD",
+                                   "VIADDMNMX", "IADD3", "LDG"))
+    print(f"{K2_ENTRY} SASS (static, IMAD counts every IMAD form): {sass}")
     phase("9 K3 big_row vs plain at the 2^12 path's shapes")
     Fb = BigMontField(BN254_FR)
     kms.update(k3_times(Fb, k3_checks(dev, Fb, errs, {})))

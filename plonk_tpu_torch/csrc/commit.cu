@@ -11,11 +11,14 @@
 //
 // Bound on the H100: integer multiply throughput. Each (b, i, w) term with
 // a nonzero digit costs one mixed addition (madd-2007-bl: 7 Montgomery
-// products and 4 squares, each 4 32-bit multiply-adds: a * b as a
-// 32x32->64 product of two, m = lo(ab) n' and the high half of m p, one
-// each); the selected table entries are 8 bytes of value each (x and y;
-// infinity needs no byte of its own), read once per commitment and mostly
-// from L2 after the first commitment.
+// products and 4 squares, each 4 32-bit multiply-adds by the yardstick of
+// chip_smoke.py: a * b as a 32x32->64 product of two, m = lo(ab) n' and
+// the high half of m p, one each); the selected table entries are 8 bytes
+// of value each (x and y; infinity needs no byte of its own), read once
+// per commitment and mostly from L2 after the first commitment. In SASS a
+// product is IMAD.WIDE.U32, IMAD and IMAD.HI.U32 with a 64-bit addend,
+// the wide forms slower than the yardstick's IMAD rate; chip_smoke.py
+// --kernels times the product and the additions alone.
 //
 // Design. The TPU kernel swept every bucket d and selected by mask, because
 // TPU gathers run element by element; a GPU thread reads table[w][d][i]
@@ -23,23 +26,27 @@
 // pack_commit_table): one 64-bit word x | y << 32 per entry in Montgomery
 // form, infinity the x = 0xFFFFFFFF that no coordinate takes (p < 2^31),
 // half the bytes of the int64 table and one 8-byte load a term; its
-// strides are the wrapper's, so the entry order in memory is the packer's
-// choice. A digit d = 0 (row 0 is the identity by construction, as the TPU
-// kernel relies on) is skipped without a load, and so is the padded top
-// window, whose digits are 0. The scalars are read as their low 32-bit
-// words. The table point is affine, so each term is a mixed addition, kept
-// complete: an accumulator at infinity takes the point, H = 0 gives a
-// doubling or infinity, the sentinel is skipped. Residues stay canonical
+// strides are the wrapper's (entries in (W, nb, L) order, which measured
+// faster than (W, L, nb)). A digit d = 0 (row 0 is the identity by
+// construction, as the TPU kernel relies on) is skipped without a load,
+// and so is the padded top window, whose digits are 0. The scalars are
+// read as their low 32-bit words. The table point is affine, so each term
+// is a mixed addition, kept complete: the general formulas already give
+// infinity for inverse points, an accumulator at infinity takes the point
+// and the sentinel is skipped by selects, and only a doubling (the
+// accumulator equal to the point) takes a branch. Residues stay canonical
 // (2p > 2^31, so a sum of two lazy residues would not fit 32 bits).
 // Blocks: b is the fastest block index, so the B commitments of a point
 // tile run side by side and each table sector fetched from device memory
-// serves them from L2; the tiles split the points evenly, their count set
-// so that the grid fills the SMs. A thread folds its points' terms into a
-// register accumulator; the block reduces through shared memory to one
-// warp and that warp by shuffles, with complete additions. The last block
-// to finish (an atomic ticket after a __threadfence) folds every tile's
-// partial in a fixed order, so the launch is one and the Jacobian result
-// deterministic; it resets the ticket for the next launch.
+// serves them from L2; the tiles split the points evenly, the wrapper
+// setting their count to one or two blocks an SM. A thread folds its
+// points' terms into a register accumulator, each point's entries loaded
+// while the previous point's terms are added; the block reduces through
+// shared memory to one warp and that warp by shuffles, with complete
+// additions. The last block to finish (an atomic ticket after a
+// __threadfence) folds every tile's partial in a fixed order, so the
+// launch is one and the Jacobian result deterministic; it resets the
+// ticket for the next launch.
 #include <cuda_runtime.h>
 #include <cstdint>
 

@@ -21,23 +21,27 @@
 // Design. The TPU kernel ran one stage at a time over lane vectors. Here a
 // block of 256 threads takes tiles of 2048 words (2048 / C whole rows) and
 // walks them grid-stride, with the grid at the SM count times the resident
-// blocks, so that any row count fills the card evenly. A tile's positions
-// q are bits: the element index at bits [0, S), the row in the tile above.
-// The stages run in radix-8 register rounds: thread g holds the 8 positions
-// of group g that differ in three q bits and runs the three stages of those
-// bits on its registers; the tile goes through shared memory between
-// rounds (4 rounds and 3 barriers at C = 1024 instead of 10 barriers; S mod
-// 3 stages take a shorter first round whose spare register bits take the
-// next q bits). The host fixes each round's positions and passes them in
-// the launch's __grid_constant__ geometry. The first round's 8 words are
-// neighbours, read with four 16-byte loads; the last round stores them.
-// Words stay below 2p between stages (Harvey's lazy butterflies, for
-// p < 2^30) and become canonical at the store. The compact table is copied
-// to shared memory once per block, and a round reads the 7 distinct
+// blocks (at most 8 an SM), so that any row count fills the card in one
+// wave; a block with several tiles loads the next one's words while it
+// transforms the current one. A tile's positions q are bits: the element
+// index at bits [0, S), the row in the tile above. The stages run in
+// radix-8 register rounds: thread g holds the 8 positions of group g that
+// differ in three q bits and runs the three stages of those bits on its
+// registers; the tile goes through shared memory between rounds (4 rounds
+// and 3 barriers at C = 1024 instead of 10 barriers; S mod 3 stages take a
+// shorter first round whose spare register bits take the next q bits). S
+// is a template parameter, so each round's stage bits and shifts are
+// constants; the host fixes each round's positions and passes them in the
+// launch's __grid_constant__ geometry. The first round's 8 words are
+// neighbours, read with 16-byte loads; the last round stores them. Words
+// stay below 2p between stages (Harvey's lazy butterflies, for p < 2^30)
+// and become canonical at the store. The compact table is copied to
+// shared memory once per block, and a round reads the 7 distinct
 // twiddles of its 12 butterflies. Shared memory is swizzled
 // (q ^ (q >> 5) & 31) and the group index is spread over q bits of
 // distinct residues mod 5, so that a warp's 32 accesses hit 32 banks in
-// every round. The SM count and the occupancy are queried once per device.
+// every round. The SM count and the occupancy are queried once per device
+// and width.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -46,7 +50,7 @@
 constexpr int kThreads = 256;
 constexpr int kTileBits = 11;
 constexpr int kTileWords = 1 << kTileBits;  // 8 a thread
-constexpr int kBlocksPerSm = 8;             // blocks launched per SM, at most
+constexpr int kBlocksPerSm = 8;             // blocks launched an SM, at most
 constexpr int kMaxDevices = 64;
 constexpr int kMaxRounds = 4;               // ceil(log2(1024) / 3)
 constexpr int kGroupBits = 8;               // log2(kThreads)
@@ -56,16 +60,14 @@ constexpr int kGroupBits = 8;               // log2(kThreads)
 // gpos[i]. The low five bits of g go to q bits of distinct residues mod 5,
 // which the shared-memory swizzle turns into distinct banks.
 struct RoundPlan {
-  int b, glo;           // stage bits in registers; element bit of reg 0
   uint32_t qoff[8];     // tile position of register k (base = 0)
   uint32_t soff[8];     // its shared-memory word, swz(qoff[k])
   int gpos[kGroupBits];
 };
 
+// plan[r]: the round of element bits glo .. glo + b - 1, lowest first (the
+// kernel's kFirst and glo)
 struct Geometry {
-  int S;      // stages: log2 C
-  int rbits;  // log2 of a tile's rows, kTileBits - S
-  int nr;     // rounds; plan[r] holds element bits glo .. glo + b - 1
   RoundPlan plan[kMaxRounds];
 };
 
@@ -242,22 +244,19 @@ __global__ void __launch_bounds__(kThreads)
 // register bits take the lowest free q bits.
 static Geometry row_geom(int S) {
   Geometry G;
-  G.S = S;
-  G.rbits = kTileBits - S;
-  G.nr = (S + 2) / 3;
-  const int b0 = S - 3 * (G.nr - 1);
-  for (int grp = 0; grp < G.nr; ++grp) {
+  const int rounds = (S + 2) / 3;
+  const int b0 = S - 3 * (rounds - 1);
+  for (int grp = 0; grp < rounds; ++grp) {
     RoundPlan& R = G.plan[grp];
-    R.b = grp == 0 ? b0 : 3;
-    R.glo = grp == 0 ? 0 : b0 + 3 * (grp - 1);
+    const int b = grp == 0 ? b0 : 3;
+    const int glo = grp == 0 ? 0 : b0 + 3 * (grp - 1);
     uint32_t used = 0;
     int qpos[3];
     for (int e = 0; e < 3; ++e) {
-      qpos[e] = R.glo + e;
-      if (e >= R.b) {  // a spare register bit: the lowest free q bit
+      qpos[e] = glo + e;
+      if (e >= b) {  // a spare register bit: the lowest free q bit
         qpos[e] = 0;
-        while ((used >> qpos[e] & 1) ||
-               (qpos[e] >= R.glo && qpos[e] < R.glo + R.b))
+        while ((used >> qpos[e] & 1) || (qpos[e] >= glo && qpos[e] < glo + b))
           ++qpos[e];
       }
       used |= 1u << qpos[e];
@@ -284,8 +283,7 @@ static Geometry row_geom(int S) {
   return G;
 }
 
-// y, out: (R, C) int64; tw: the C - 1 uint32 words of the compact table;
-// C = 2^S, 1 <= S <= 10; p < 2^30.
+// One launch of row_stages_kernel<S> on R rows.
 template <int S>
 static cudaError_t launch(const long long* y, const uint32_t* tw,
                           long long* out, long long R, MontParams f,
@@ -306,7 +304,8 @@ static cudaError_t launch(const long long* y, const uint32_t* tw,
     blocks_max[dev] = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
   }
   const Geometry G = row_geom(S);
-  const long long tiles = (R + (1ll << G.rbits) - 1) >> G.rbits;
+  const long long tiles =
+      (R + (1ll << (kTileBits - S)) - 1) >> (kTileBits - S);
   const int blocks =
       tiles < blocks_max[dev] ? (int)tiles : blocks_max[dev];
   row_stages_kernel<S><<<blocks, kThreads, 0, stream>>>(y, tw, out, R, G, f);

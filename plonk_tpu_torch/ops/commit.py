@@ -120,8 +120,13 @@ def commit_many(F, table: FixedBaseTable, scalars: torch.Tensor) -> G1J:
         raise ValueError(f"commit_many: scalars must be (B >= 1, {L}), got "
                          f"{tuple(scalars.shape)}")
     B = scalars.shape[0]
-    # point tiles: two points a thread at least, two blocks an SM at most
-    n_tiles = max(1, min(-(-L // (2 * _THREADS)), 2 * _sm_count(dev) // B))
+    # point tiles: two blocks an SM while that leaves a thread 4 points or
+    # more, else one; a tile has a thread's worth of points at least
+    sms = _sm_count(dev)
+    n_tiles = 2 * sms // B
+    if L < 4 * _THREADS * n_tiles:
+        n_tiles = sms // B
+    n_tiles = max(1, min(n_tiles, -(-L // _THREADS)))
     partials = torch.empty((3, B, n_tiles), dtype=torch.int32, device=dev)
     out = torch.empty((3, B), dtype=torch.int64, device=dev)
     err = kernels.library().commit_many_launch(
