@@ -1385,14 +1385,18 @@ def k12_bounds(k1_inputs: dict, k2_inputs: dict) -> dict:
 # csrc/commit.cu's own device functions.
 ARITH_PROBE_CU = r"""
 #include "commit.cu"
-__global__ void arith_probe(int op, CurveConsts k, int n, uint32_t* out) {
+template <int OP>
+__global__ void arith_probe(CurveConsts k, int n, uint32_t* out) {
   uint32_t a = threadIdx.x + 5u;
   Jac acc{threadIdx.x + 5u, 7u, 1u}, q{11u, 13u + threadIdx.x, 3u};
   for (int i = 0; i < n; ++i) {
-    if (op == 0) a = fmul(a, 77u + i, k.f);
-    else if (op == 1)
+    if (OP == 0) a = fmul(a, 77u + i, k.f);
+    if (OP == 1)
       acc = jac_madd(k, acc, (unsigned long long)(i + 3) << 32 | (i * 7u + 1));
-    else { acc = jac_add(k, acc, q); q.X += 1; }
+    if (OP == 2) {
+      acc = jac_add(k, acc, q);
+      q.X += 1;
+    }
   }
   out[blockIdx.x * blockDim.x + threadIdx.x] = a ^ acc.X ^ acc.Y ^ acc.Z;
 }
@@ -1400,7 +1404,10 @@ extern "C" int arith_probe_launch(int op, int blocks, int threads, int n,
                                   unsigned p, unsigned n_prime, unsigned one,
                                   void* out) {
   CurveConsts k{MontParams{p, n_prime}, one, one, one, one};
-  arith_probe<<<blocks, threads>>>(op, k, n, (uint32_t*)out);
+  uint32_t* o = (uint32_t*)out;
+  if (op == 0) arith_probe<0><<<blocks, threads>>>(k, n, o);
+  if (op == 1) arith_probe<1><<<blocks, threads>>>(k, n, o);
+  if (op == 2) arith_probe<2><<<blocks, threads>>>(k, n, o);
   return (int)cudaGetLastError();
 }
 """
@@ -1421,8 +1428,9 @@ def arith_probe(dev) -> None:
                     "-o", lib_path, src], check=True, capture_output=True,
                    timeout=600)
     lib = ctypes.CDLL(lib_path)
-    lib.arith_probe_launch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_uint] * 3 \
-        + [ctypes.c_void_p]
+    lib.arith_probe_launch.argtypes = ([ctypes.c_int] * 4
+                                       + [ctypes.c_uint] * 3
+                                       + [ctypes.c_void_p])
     Fq = MontField(SCALED_FQ)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(8 * sms * 256, dtype=torch.int32, device=dev)
@@ -1467,9 +1475,9 @@ def kernels_only(dev, card: str) -> None:
                                             for k, v in ms.items()))
     k12_bounds(k1_inputs, k2_inputs)
     for name, (y, _) in k1_inputs.items():
+        copy_ms = cuda_ms(y.clone, reps=100, queue_ahead=True)
         print(f"row_stages {name}: a copy of the same int64 words "
-              f"(y.clone()) {cuda_ms(y.clone, reps=100, queue_ahead=True):.6f} "
-              "ms (CUDA events, queued ahead)")
+              f"(y.clone()) {copy_ms:.6f} ms (CUDA events, queued ahead)")
     arith_probe(dev)
     sass = sass_opcodes(K2_ENTRY, ("IMAD.WIDE", "IMAD.HI", "IMAD",
                                    "VIADDMNMX", "IADD3", "LDG"))

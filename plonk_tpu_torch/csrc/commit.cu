@@ -33,9 +33,10 @@
 // read as their low 32-bit words. The table point is affine, so each term
 // is a mixed addition, kept complete: the general formulas already give
 // infinity for inverse points, an accumulator at infinity takes the point
-// and the sentinel is skipped by selects, and only a doubling (the
-// accumulator equal to the point) takes a branch. Residues stay canonical
-// (2p > 2^31, so a sum of two lazy residues would not fit 32 bits).
+// by a select, and only a doubling (the accumulator equal to the point)
+// takes a branch; a sentinel entry skips the addition. Residues stay
+// canonical (2p > 2^31, so a sum of two lazy residues would not fit 32
+// bits).
 // Blocks: b is the fastest block index, so the B commitments of a point
 // tile run side by side and each table sector fetched from device memory
 // serves them from L2; the tiles split the points evenly, the wrapper
@@ -132,12 +133,12 @@ __device__ __forceinline__ Jac jac_add(const CurveConsts& k, Jac a, Jac b) {
   return out;
 }
 
-// a + the packed affine entry e, complete (madd-2007-bl: 7 products and 4
-// squares): the sentinel leaves a as it is, an accumulator at infinity
-// takes the point, inverse points give infinity (H = 0 makes Z3 = 0 in
-// the general formulas) and equal points a doubling, the one case behind
-// a branch. Written without other branches, so that the compiler can
-// schedule a term's products freely.
+// a + the packed affine entry e of a finite point, complete (madd-2007-bl:
+// 7 products and 4 squares): an accumulator at infinity takes the point,
+// inverse points give infinity (H = 0 makes Z3 = 0 in the general
+// formulas) and equal points a doubling, the one case behind a branch.
+// Written without other branches, so that the compiler can schedule a
+// term's products freely.
 __device__ __forceinline__ Jac jac_madd(const CurveConsts& k, Jac a,
                                         unsigned long long e) {
   const MontParams f = k.f;
@@ -160,10 +161,8 @@ __device__ __forceinline__ Jac jac_madd(const CurveConsts& k, Jac a,
   out.Y = fsub(fmul(r, fsub(V, out.X, p), f), fadd(YJ, YJ, p), p);
   const uint32_t ZH = fadd(a.Z, H, p);
   out.Z = fsub(fsub(fmul(ZH, ZH, f), Z1Z1, p), HH, p);
-  if (H == 0 && r2 == 0 && a.Z != 0 && x2 != kInfinity)
-    out = jac_double(k, a);
+  if (H == 0 && r2 == 0 && a.Z != 0) out = jac_double(k, a);
   if (a.Z == 0) out = Jac{x2, y2, k.one};
-  if (x2 == kInfinity) out = a;
   return out;
 }
 
@@ -245,8 +244,11 @@ __global__ void __launch_bounds__(kThreads)
     unsigned long long e1[kMaxWindows];
     load_terms(e1, table, sw, sd, si, W, wb, i1, s_next, i1 < hi);
     s_next = i1 + kThreads < hi ? sb[2 * (i1 + kThreads)] : 0u;
+    // the sentinel (a zero digit, the padded top window, an infinity
+    // base) adds nothing; the top window's skip is uniform in a warp
 #pragma unroll
-    for (int w = 0; w < kMaxWindows; ++w) acc = jac_madd(k, acc, e[w]);
+    for (int w = 0; w < kMaxWindows; ++w)
+      if ((uint32_t)e[w] != kInfinity) acc = jac_madd(k, acc, e[w]);
 #pragma unroll
     for (int w = 0; w < kMaxWindows; ++w) e[w] = e1[w];
   }

@@ -54,14 +54,6 @@ def pack_commit_table(table: FixedBaseTable) -> torch.Tensor:
     return (x | (y << 32)).contiguous()
 
 
-def unpack_commit_table(packed: torch.Tensor):
-    """(x, y, inf) of a packed table; an infinity entry reads x = y = 0, as
-    build_fixed_base_table stores it."""
-    x = packed & 0xFFFFFFFF
-    inf = x == INFINITY_X
-    return (torch.where(inf, 0, x), torch.where(inf, 0, packed >> 32), inf)
-
-
 def with_packed(table: FixedBaseTable) -> FixedBaseTable:
     """The table with its packed copy attached when it lies on a CUDA
     device (a CPU table is returned as it is: the plain version reads x, y

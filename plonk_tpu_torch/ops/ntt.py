@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .row_stages import compact_twiddles, row_stages
+from .row_stages import row_stages
 
 _ROW = 1024
 
@@ -66,14 +66,12 @@ def _stage_tables(p: int, w: int, n: int, C: int):
 @functools.lru_cache(maxsize=64)
 def _device_tables(F, w: int, n: int, C: int, device: torch.device):
     """Montgomery-form stage tables on `device`: (intra-row stack of shape
-    (log2 C, C), tuple of cross-row (D, C) tables). On a CUDA device the
-    intra-row stack's compact form for K1 is made here too, once."""
+    (log2 C, C), tuple of cross-row (D, C) tables). K1 makes the intra-row
+    stack's compact form at its first use and keeps it with the stack."""
     tables = _stage_tables(F.p, w, n, C)
     n_intra = C.bit_length() - 1
     intra = F.array(np.stack(tables[:n_intra]), device)
     cross = tuple(F.array(t, device) for t in tables[n_intra:])
-    if intra.device.type == "cuda":
-        compact_twiddles(intra)
     return intra, cross
 
 

@@ -90,8 +90,6 @@ def compact_twiddles(tw_stack: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"row_stages: stage {s} of the twiddle table is "
                              f"not periodic in 2^{s}")
         parts.append(head)
-    if S == 0:
-        return torch.zeros(0, dtype=torch.int32, device=tw_stack.device)
     return torch.cat(parts).to(torch.int32)
 
 

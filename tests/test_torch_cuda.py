@@ -54,6 +54,19 @@ def test_row_stages_kernel_matches_plain(dev, R, C):
         assert torch.equal(got, row_stages_plain(Fr.p, Fr.n_prime, y, intra))
 
 
+@pytest.mark.parametrize("R,C", [(4096, 1024), (40000, 64), (900000, 2)])
+def test_row_stages_kernel_walks_tiles(dev, R, C):
+    """More tiles of 2048 words than the grid holds: each block walks
+    several, loading the next one's words ahead."""
+    n = C << (R - 1).bit_length()
+    intra, _ = N._device_tables(Fr, SCALED_FR.root_of_unity(n), n, C, dev)
+    y = torch.as_tensor(np.random.default_rng(R).integers(0, Fr.p,
+                                                          size=(R, C)),
+                        device=dev)
+    assert torch.equal(row_stages(Fr.p, Fr.n_prime, y, intra),
+                       row_stages_plain(Fr.p, Fr.n_prime, y, intra))
+
+
 def test_row_stages_kernel_refuses_other_tables(dev):
     """K1 shares a twiddle between a pair's lanes: a table that is not
     lane-periodic is refused on the card, before any launch."""
