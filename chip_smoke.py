@@ -1445,7 +1445,7 @@ def arith_probe(dev) -> None:
         one = cuda_ms(lambda: run(1, 32), reps=5, queue_ahead=True)
         full = cuda_ms(lambda: run(8 * sms, 256), reps=5, queue_ahead=True)
         print(f"K2 arithmetic, {name}: {one * 1e6 / n:.3f} ns dependent "
-              f"latency; {8 * sms * 256 * n / full / 1e9:.3f} per ns over "
+              f"latency; {8 * sms * 256 * n / full / 1e6:.3f} per ns over "
               f"the card (chains of {n}, CUDA events)")
 
 
