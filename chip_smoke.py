@@ -30,9 +30,11 @@ algebra and its pairings:
     python3 chip_smoke.py --profile
 
 With --kernels only phases 1 and 2 run, then phases 3 and 4 (K1 and K2
-against their plain versions), K1's and K2's times and bounds, phase 9's
-K3 checks and phase 14's K6 checks, edge inputs and pass split with their
-times, in about two minutes, and no result line is printed:
+against their plain versions), K1's and K2's times and bounds beside a
+copy of K1's words, K2 on its packed table's other entry order and K2's
+product and additions timed alone, then phase 9's K3 checks and phase
+14's K6 checks, edge inputs and pass split with their times, in about a
+minute, and no result line is printed:
 
     python3 chip_smoke.py --kernels
 
