@@ -64,9 +64,10 @@ def with_packed(table: FixedBaseTable) -> FixedBaseTable:
 
 
 @functools.lru_cache(maxsize=None)
-def _ticket(device: torch.device) -> torch.Tensor:
-    """K2's last-block ticket on `device`: one word, 0 between launches
-    (the kernel's last block resets it)."""
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """K2's last-block ticket for launches on `stream` of `device`: one
+    word, 0 between launches (the kernel's last block resets it). One a
+    stream, so that launches that may overlap never share one."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -121,11 +122,12 @@ def commit_many(F, table: FixedBaseTable, scalars: torch.Tensor) -> G1J:
     n_tiles = max(1, min(n_tiles, -(-L // _THREADS)))
     partials = torch.empty((3, B, n_tiles), dtype=torch.int32, device=dev)
     out = torch.empty((3, B), dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.library().commit_many_launch(
         scalars.data_ptr(), packed.data_ptr(), *packed.stride(), B, W, wb,
         L, F.p, F.n_prime, F.const(1), F.const(2), F.const(3), F.const(8),
-        partials.data_ptr(), n_tiles, _ticket(dev).data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        partials.data_ptr(), n_tiles, _ticket(dev, stream).data_ptr(),
+        out.data_ptr(), stream)
     kernels.check_launch(err, "commit_many")
     return G1J(out[0], out[1], out[2])
 

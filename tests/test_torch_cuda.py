@@ -157,6 +157,28 @@ def test_commit_kernel_edge_batch(dev):
         CM.commit_many(Fq, tbl._replace(packed=None), scalars)
 
 
+def test_commit_kernel_on_two_streams(dev):
+    """K2 launches on two streams may overlap: each stream has its own
+    last-block ticket, so both commitments come out right."""
+    rng = np.random.default_rng(7)
+    r = SCALED_CURVE.r
+    tbl = CM.build_commit_table(Fq, _commit_points(rng, 8193), r.bit_length())
+    scs = [torch.as_tensor(rng.integers(0, r, size=(9, 8193)), device=dev)
+           for _ in range(2)]
+    wants = [C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, sc))
+             for sc in scs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for _ in range(20):
+        outs = []
+        for st, sc in zip(streams, scs):
+            with torch.cuda.stream(st):
+                outs.append(CM.commit_many(Fq, tbl, sc))
+        torch.cuda.synchronize()
+        for got, want in zip(outs, wants):
+            _assert_affine_equal(C.jac_to_affine(Fq, got), want)
+
+
 def test_proof_on_cuda_matches_cpu(dev):
     n = 16
     ch, rnd = [1111, 2222, 3333, 4444, 5555], list(range(1, 10))
