@@ -32,9 +32,11 @@ algebra and its pairings:
 With --kernels only phases 1 and 2 run, then phases 3 and 4 (K1 and K2
 against their plain versions), K1's and K2's times and bounds beside a
 copy of K1's words, K2 on its packed table's other entry order and K2's
-product and additions timed alone, then phase 9's K3 checks and phase
-14's K6 checks, edge inputs and pass split with their times, in about a
-minute, and no result line is printed:
+product and additions timed alone, then phase 9's K3 checks, phase
+14's K6 checks, edge inputs and pass split and its K5 checks, and phase
+17's K8 and K9 checks, each with its times (K9 alone and as the whole
+all_to_all call, device and host time), in about two minutes, and no
+result line is printed:
 
     python3 chip_smoke.py --kernels
 
@@ -59,11 +61,12 @@ which the JAX package configures its BN254 prover:
 
 Then the scaled prover's other prims at 2^16 gates, on the context of
 phases 4-7:
- 14. K6's ptxas report (no spills), K7's and its SASS (it must hold int8
-     tensor-core instructions); K5 (full-row transform), K6 (one-pass
-     four-step transform) and K7 (modular matmul, also on words p - 1)
-     against their plain versions, word-equal, at the shapes of the 2^18
-     coset transforms, each call one launch; K6 also on matrices of zeros
+ 14. K5's and K6's ptxas reports (no spills), K7's and its SASS (it must
+     hold int8 tensor-core instructions); K5 (full-row transform, both
+     directions, on random and edge rows), K6 (one-pass four-step
+     transform) and K7 (modular matmul, also on words p - 1) against their
+     plain versions, word-equal, at the shapes of the 2^18 coset
+     transforms, each call one launch; K6 also on matrices of zeros
      and of p - 1, and at nb = 1 on small shapes down to n1 = 1; K6's
      passes timed apart (first pass, grid barrier, second pass);
  15. make_prover (precompute_circuit) and a proof under fused_prims,
@@ -81,7 +84,8 @@ same context, with its eight shards all on the card:
      through plain copies: launches counted, diagnostics, the proof equal
      to phase 6's, verify, tamper rejection;
  19. proofs/s of the default prims and of both sharded prims in turns,
-     K8 and K9 against their plain versions.
+     K8 and K9 against their plain versions (K9 alone and as the whole
+     all_to_all call, device and host time).
 
 Any failure raises and exits non-zero before the result line; so does a
 machine without CUDA, and a directory that holds the script without the
@@ -272,13 +276,13 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = 10, queue_ahead: bool = False) -> float:
-    """Mean time of fn() over reps back-to-back calls, by CUDA events,
-    after two warm-ups. With queue_ahead a device-side delay is queued
-    first, so that the host has enqueued every call before the device
-    reaches them and the events time the device work alone; without it a
-    call shorter than its own enqueue on the host is timed at the host's
-    rate."""
+def timed_calls(fn, reps: int = 10, queue_ahead: bool = False):
+    """(mean device ms of fn() over reps back-to-back calls by CUDA events,
+    mean host µs per call to enqueue them), after two warm-ups. With
+    queue_ahead a device-side delay is queued first, so that the host has
+    enqueued every call before the device reaches them and the events time
+    the device work alone; without it a call shorter than its own enqueue
+    on the host is timed at the host's rate."""
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -297,7 +301,12 @@ def cuda_ms(fn, reps: int = 10, queue_ahead: bool = False) -> float:
         print(f"  (the host took {host_ms:.3f} ms to enqueue {reps} calls, "
               f"longer than the ~{QUEUE_AHEAD_MS:.0f} ms device delay: "
               "this reading includes host time)")
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host_ms * 1e3 / reps
+
+
+def cuda_ms(fn, reps: int = 10, queue_ahead: bool = False) -> float:
+    """The device ms per call of timed_calls."""
+    return timed_calls(fn, reps, queue_ahead)[0]
 
 
 def device_ms(fn, reps: int = 20):
@@ -923,6 +932,51 @@ def print_split(name: str, split: dict) -> None:
         f"{k} {v:.6f}" for k, v in split.items()))
 
 
+# K5's kernels in the ptxas report (a substring of the mangled name)
+K5_ENTRY = "row_transform_kernel"
+
+
+def k5_checks(Fr, dev, w: int, m: int, errs: dict) -> dict:
+    """K5 against its plain version, word-equal, in both directions at the
+    two row shapes of the m-point coset transforms under the fused prims
+    (w a root of order m = n1 n2): (5 n2, n1), the passes over the 5-row
+    proof stack, and (n1, n2), those over the quotient; on random rows and
+    on edge rows (zeros, p - 1, first-stage partners lo = hi and
+    hi = p - lo), each call one launch. Returns the proof's cases, name ->
+    (arguments on random rows, bound): the forward's (5 n2, n1) DIF and
+    the inverse's (n1, n2) DIT."""
+    p = Fr.p
+    n1, n2 = FN._split(m)
+    rng = np.random.default_rng(5)
+    timed = {}
+    for what, R, C, w_row, proof_dif in (
+            ("proof fwd", 5 * n2, n1, pow(w, n2, p), True),
+            ("inverse", n1, n2, pow(pow(w, -1, p), n1, p), False)):
+        tw = FN._row_tables(Fr, w_row, C, dev)
+        for dif in (proof_dif, not proof_dif):
+            name = (f"{what if dif == proof_dif else 'other direction'} "
+                    f"({R}, {C}) {'DIF' if dif else 'DIT'}")
+            for kind in ("random", "edge rows"):
+                vals = (rng.integers(0, p, size=(R, C)) if kind == "random"
+                        else edge_rows(p, R, C, rng, C // 2 if dif else 1))
+                args = (p, Fr.n_prime, torch.as_tensor(vals, device=dev), tw,
+                        dif)
+                before = kernels.LAUNCHES["row_transform"]
+                got = RS.row_transform(*args)
+                want = RS.row_transform_plain(*args)
+                torch.cuda.synchronize()
+                check(kernels.LAUNCHES["row_transform"] == before + 1,
+                      f"row_transform {name}: one launch per call")
+                err = int((got - want).abs().max())
+                print(f"row_transform {name}, {kind}: max_abs_err {err}")
+                check(err == 0, f"K5 word-equal at {name}, {kind}")
+                errs["row_transform"] = max(errs.get("row_transform", 0),
+                                            err)
+                if kind == "random" and dif == proof_dif:
+                    timed[name] = (args, row_bound(R, C))
+    return timed
+
+
 def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     """Phases 14-16: the fused, onepass and mxu2 prims at 2^16 gates on the
     scaled context `ctx`, against the default prims' `ref_proof` of the
@@ -940,17 +994,14 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
 
     phase("14 K5 row_transform, K6 onepass_ntt, K7 mont_matmul vs plain at "
           "the 2^18 coset transforms' shapes")
-    cases = {}
-    # K5: the forward's first row pass over the 5-row proof stack, and the
-    # inverse's first row pass over the quotient
-    for name, R, C, w_row, dif in (
-            ("proof fwd (2560, 512) DIF", 5 * n2, n1, pow(w8, n2, p), True),
-            ("inverse (512, 512) DIT", n1, n2, pow(w8i, n1, p), False)):
-        args = (p, Fr.n_prime, rand(R, C),
-                FN._row_tables(Fr, w_row, C, dev), dif)
+    errs, bounds, cases = {}, {}, {}
+    ptxas_report(K5_ENTRY)
+    k5_args = {}
+    for name, (args, bnd) in k5_checks(Fr, dev, w8, m, errs).items():
+        k5_args[name] = args
         cases["row_transform", name] = (
             lambda a=args: RS.row_transform(*a),
-            lambda a=args: RS.row_transform_plain(*a), row_bound(R, C))
+            lambda a=args: RS.row_transform_plain(*a), bnd)
     # K6: the per-proof forward stack and the inverse of the quotient
     k6_args = {}
     for name, nb, inverse in (("proof fwd (5, 512, 512)", 5, False),
@@ -991,7 +1042,6 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     print(f"mont_matmul SASS: {sass}")
     check(sass["IGMMA"] > 0, "mont_matmul issues int8 warpgroup "
           "tensor-core instructions (IGMMA)")
-    errs, bounds = {}, {}
     for (kname, name), (kern, plain, bnd) in cases.items():
         before = kernels.LAUNCHES[kname]
         got = kern()
@@ -1052,9 +1102,10 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     print_kernel_times(kms)
     for (kname, name), (_, _, bnd) in cases.items():
         floor = ""
-        if kname == "onepass_ntt":
-            floor = (f"; int64 floor "
-                     f"{int64_floor_ms(2 * k6_args[name][2].numel()):.6f} ms")
+        if kname in ("onepass_ntt", "row_transform"):
+            y = (k6_args[name] if kname == "onepass_ntt"
+                 else k5_args[name])[2]
+            floor = f"; int64 floor {int64_floor_ms(2 * y.numel()):.6f} ms"
         print(f"{kname} {name}: bound {bnd[0]:.6f} ms ({bnd[1]}){floor}")
     print(f"mont_matmul at the IMAD rate (32x32->64 products): "
           f"{bounds['mont_matmul'][2]:.6f} ms")
@@ -1115,47 +1166,45 @@ def exchange_bound(name: str, D: int, shard_numel: int):
     return bound_ms((D * shard_numel + out) * WORD_BYTES, 0)
 
 
-def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
-    """Phases 17-19: K8 and K9 against their plain versions, then the 2^16
-    proof under the sharded prims on D_MESH shards of the card, against
-    the default prims' `ref_proof` of phase 6 (made by `ref_prover`, with
-    verifying key `vk`); returns the kernel entries."""
-    Fr = ctx.Fr
-    sel, cp, a, b, c = circuit
-    gen = torch.Generator(device="cpu").manual_seed(17)
+def exchange_call(name: str, xs, split, concat, exchange):
+    """The whole collective on shards xs: CL.all_gather or CL.all_to_all."""
+    if name == "all_gather":
+        return lambda: CL.all_gather(xs, exchange)
+    return lambda: CL.all_to_all(xs, split, concat, exchange)
 
-    def shards_of(D, shape):
-        return [torch.randint(0, Fr.p, shape, generator=gen).to(dev)
-                for _ in range(D)]
 
-    def calls(name, xs, split, concat, exchange):
-        if name == "all_gather":
-            return lambda: CL.all_gather(xs, exchange)
-        return lambda: CL.all_to_all(xs, split, concat, exchange)
-
-    def exchange_only(name, xs, split, exchange):
-        """The exchange alone, without the relayout around it, into
-        destinations made once."""
-        D = len(xs)
-        if name == "all_gather":
-            dsts = [torch.empty(D * x.numel(), dtype=x.dtype, device=dev)
-                    for x in xs]
-            return lambda: CL.all_gather_into(xs, dsts, exchange)
-        srcs = [torch.movedim(x, split, 0).reshape(D, -1).contiguous()
+def exchange_only(name: str, xs, split, exchange):
+    """The exchange alone, into destinations made once; for K9 from
+    sources relaid out once to D contiguous chunks each (the split axis
+    leading), as all_to_all_into takes them."""
+    D = len(xs)
+    if name == "all_gather":
+        dsts = [torch.empty(D * x.numel(), dtype=x.dtype, device=x.device)
                 for x in xs]
-        dsts = [torch.empty_like(x) for x in srcs]
-        return lambda: CL.all_to_all_into(srcs, dsts, exchange)
+        return lambda: CL.all_gather_into(xs, dsts, exchange)
+    srcs = [torch.movedim(x, split, 0).reshape(D, -1).contiguous()
+            for x in xs]
+    dsts = [torch.empty_like(x) for x in srcs]
+    return lambda: CL.all_to_all_into(srcs, dsts, exchange)
 
-    phase("17 K8 all_gather and K9 all_to_all vs plain at the 2^16 sharded "
-          "path's shapes")
-    errs, bounds, timed, tested = {}, {}, {}, set()
-    cases = [(k, nm, D_MESH, sh, sp, ct)
-             for k, nm, sh, sp, ct in dist_cases(ctx.n, ctx.domain8)]
+
+def exchange_checks(dev, p: int, n: int, m: int, errs: dict):
+    """Phase 17's checks: K8 and K9 against their plain versions,
+    word-equal, at every exchange shape of the sharded proof of n gates
+    (m-point coset) on D_MESH shards and at EDGE_CASES, each call one
+    launch. Returns (the D_MESH cases to time, (kernel, name) -> (shards,
+    split, concat); the bound of each kernel's first case; the (kernel,
+    shards, shard words) checked)."""
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    bounds, timed, tested = {}, {}, set()
+    cases = [(k, nm, D_MESH, sh, sp, ct) for k, nm, sh, sp, ct in
+             dist_cases(n, m)]
     for kname, name, D, shape, split, concat in cases + EDGE_CASES:
-        xs = shards_of(D, shape)
+        xs = [torch.randint(0, p, shape, generator=gen).to(dev)
+              for _ in range(D)]
         before = kernels.LAUNCHES[kname]
-        got = calls(kname, xs, split, concat, "cuda")()
-        want = calls(kname, xs, split, concat, "plain")()
+        got = exchange_call(kname, xs, split, concat, "cuda")()
+        want = exchange_call(kname, xs, split, concat, "plain")()
         torch.cuda.synchronize()
         check(kernels.LAUNCHES[kname] == before + 1,
               f"{kname} {name}: one launch per call")
@@ -1168,16 +1217,64 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
         tested.add((kname, D, numel))
         if D == D_MESH:
             bounds.setdefault(kname, exchange_bound(kname, D, numel))
-            timed.setdefault((kname, name), (xs, split, numel))
+            timed.setdefault((kname, name), (xs, split, concat))
+    return timed, bounds, tested
+
+
+def a2a_times(timed: dict):
+    """K9 at each D_MESH shape of `timed`: the kernel alone
+    (exchange_only, 100 calls) and the whole CL.all_to_all call through
+    K9 (40 calls) and through plain copies (20 calls), device ms by CUDA
+    events over calls queued behind a device delay, host µs per call
+    enqueued; the plain whole call back to back; each shape's bound and
+    int64 floor. Returns (kernel_times entries of the whole call, keyed
+    "all_to_all <case>"; the plain whole call's queued ms of the first
+    case)."""
+    kms, library = {}, None
+    for (kname, name), (xs, split, concat) in timed.items():
+        if kname != "all_to_all":
+            continue
+        alone = cuda_ms(exchange_only(kname, xs, split, "cuda"), reps=100,
+                        queue_ahead=True)
+        whole = exchange_call(kname, xs, split, concat, "cuda")
+        plain = exchange_call(kname, xs, split, concat, "plain")
+        w_ms, w_us = timed_calls(whole, reps=40, queue_ahead=True)
+        p_ms, p_us = timed_calls(plain, reps=20, queue_ahead=True)
+        kms[f"{kname} {name}"] = (w_ms, cuda_ms(plain, reps=3),
+                                  device_ms(whole))
+        library = p_ms if library is None else library
+        numel = xs[0].numel()
+        print(f"{kname} {name}: kernel alone {alone:.6f} ms; whole call "
+              f"{w_ms:.6f} ms device, {w_us:.1f} us host per call; plain "
+              f"whole call {p_ms:.6f} ms device, {p_us:.1f} us host per "
+              f"call (CUDA events, queued ahead); bound "
+              f"{exchange_bound(kname, D_MESH, numel)[0]:.6f} ms (bytes); "
+              f"int64 floor {int64_floor_ms(2 * D_MESH * numel):.6f} ms")
+    return kms, library
+
+
+def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
+    """Phases 17-19: K8 and K9 against their plain versions, then the 2^16
+    proof under the sharded prims on D_MESH shards of the card, against
+    the default prims' `ref_proof` of phase 6 (made by `ref_prover`, with
+    verifying key `vk`); returns the kernel entries."""
+    Fr = ctx.Fr
+    sel, cp, a, b, c = circuit
+
+    phase("17 K8 all_gather and K9 all_to_all vs plain at the 2^16 sharded "
+          "path's shapes")
+    errs = {}
+    timed, bounds, tested = exchange_checks(dev, Fr.p, ctx.n, ctx.domain8,
+                                            errs)
 
     phase("18 a 2^16 proof under the sharded prims on 8 shards of the card")
     mesh = MS.make_1d_mesh("sp", D_MESH, device=dev)
     seen = set()
     launch = CL._launch
 
-    def recorded(name, srcs, dsts, chunk_bytes):
+    def recorded(name, srcs, *rest):
         seen.add((name, len(srcs), srcs[0].numel()))
-        return launch(name, srcs, dsts, chunk_bytes)
+        return launch(name, srcs, *rest)
 
     provers = {"default": lambda ch, rnd: ref_prover(a, b, c, ch, rnd)}
     launches = {}
@@ -1225,18 +1322,22 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
             (_, d), sec = wall(lambda: prover(CH, rnd))
             check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
             total[name] += sec
-    kms, library = {}, {}
-    for (kname, name), (xs, split, numel) in timed.items():
-        kern = exchange_only(kname, xs, split, "cuda")
+    kms, a2a_library = a2a_times(timed)
+    library = {"all_to_all": a2a_library}
+    for (kname, name), (xs, split, _) in timed.items():
+        if kname != "all_gather":
+            continue
         plain = exchange_only(kname, xs, split, "plain")
-        kms[f"{kname} {name}"] = kernel_times(kern, plain)
+        kms[f"{kname} {name}"] = kernel_times(
+            exchange_only(kname, xs, split, "cuda"), plain)
         # its 8 PyTorch launches per destination take the host ~0.5-1.5 ms
         # per call: 20 calls fit in the device delay
         lib = cuda_ms(plain, reps=20, queue_ahead=True)
         library.setdefault(kname, lib)
         print(f"{kname} {name}: plain exchange {lib:.6f} ms (CUDA events, "
               f"queued ahead); bound "
-              f"{exchange_bound(kname, D_MESH, numel)[0]:.9f} ms (bytes)")
+              f"{exchange_bound(kname, D_MESH, xs[0].numel())[0]:.9f} ms "
+              "(bytes)")
     print(f"card: {card}")
     for name in provers:
         print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
@@ -1510,6 +1611,19 @@ def kernels_only(dev, card: str) -> None:
         print(f"onepass_ntt {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
               f"int64 floor {int64_floor_ms(2 * nb * n1 * n2):.6f} ms")
     k6_edge_checks(F, dev)
+    phase("14 K5 row_transform vs plain at the 2^18 coset transforms' "
+          "shapes")
+    ptxas_report(K5_ENTRY)
+    for name, (args, bnd) in k5_checks(F, dev, SCALED_FR.root_of_unity(m),
+                                       m, errs).items():
+        kms[f"row_transform {name}"] = kernel_times(
+            lambda a=args: RS.row_transform(*a),
+            lambda a=args: RS.row_transform_plain(*a))
+        print(f"row_transform {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
+              f"int64 floor {int64_floor_ms(2 * args[2].numel()):.6f} ms")
+    phase("17 K9 all_to_all vs plain at the 2^16 sharded path's shapes")
+    timed, _, _ = exchange_checks(dev, F.p, N_MAIN, m, errs)
+    kms.update(a2a_times(timed)[0])
     print(f"card: {card}")
     print_kernel_times(kms)
     print(f"kernels checked and timed in {time.perf_counter() - T0:.1f} s")
@@ -1521,10 +1635,10 @@ def main() -> None:
                     help="add phase 8: stage times, device time and idle "
                          "share of a proof, verify split")
     ap.add_argument("--kernels", action="store_true",
-                    help="only phases 1 and 2, then K1, K2, K3 and K6 "
-                         "against their plain versions with their times, "
-                         "ptxas reports and K6's pass split; no result "
-                         "line")
+                    help="only phases 1 and 2, then K1, K2, K3, K5, K6, "
+                         "K8 and K9 against their plain versions with "
+                         "their times, ptxas reports and K6's pass split; "
+                         "no result line")
     args = ap.parse_args()
     phase("1 device")
     if not torch.cuda.is_available():

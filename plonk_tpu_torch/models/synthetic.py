@@ -117,15 +117,18 @@ def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
     return vals
 
 
-def edge_rows(p: int, R: int, C: int, rng) -> np.ndarray:
+def edge_rows(p: int, R: int, C: int, rng, half: int = 1) -> np.ndarray:
     """(R, C) words below p (one machine word, the scaled curve's Fr) whose
     rows cycle through five kinds: random; zeros; p - 1; lo = hi; hi = p -
-    lo (so that the first DIT stage's sum, whose twiddle is 1, is exactly
-    p). lo and hi are the first stage's partners, neighbours in the row."""
+    lo (so that the first stage's sum, whose twiddle is 1, is exactly p).
+    lo and hi are the first stage's partners, `half` apart in the row:
+    neighbours for the first DIT stage (half = 1), the two halves of the row
+    for the first DIF stage (half = C / 2)."""
     vals = rng.integers(0, p, size=(R, C))
     vals[1::5] = 0
     vals[2::5] = p - 1
-    lo, hi = vals[:, 0::2], vals[:, 1::2]
+    pairs = vals.reshape(R, C // (2 * half), 2, half)
+    lo, hi = pairs[:, :, 0], pairs[:, :, 1]
     hi[3::5] = lo[3::5]
     lo[4::5] = np.maximum(lo[4::5], 1)               # so p - lo < p
     hi[4::5] = p - lo[4::5]
