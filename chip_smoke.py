@@ -170,7 +170,7 @@ BN254_KERNELS = {
 }
 PRIMS_KERNELS = {
     "row_transform": dict(route="cuda",
-                          source="plonk_tpu_torch/csrc/row_transform.cu",
+                          source="plonk_tpu_torch/csrc/row_stages.cu",
                           replaces="plonk_tpu/ops/pallas_ntt.py:144"),
     "onepass_ntt": dict(route="cuda",
                         source="plonk_tpu_torch/csrc/onepass_ntt.cu",
@@ -932,8 +932,9 @@ def print_split(name: str, split: dict) -> None:
         f"{k} {v:.6f}" for k, v in split.items()))
 
 
-# K5's kernels in the ptxas report (a substring of the mangled name)
-K5_ENTRY = "row_transform_kernel"
+# K5's kernels in the ptxas report (a substring of the mangled name): K1's
+# kernel at C = 512 (S = 9), DIF and DIT
+K5_ENTRY = "row_stages_kernelILi9E"
 
 
 def k5_checks(Fr, dev, w: int, m: int, errs: dict) -> dict:

@@ -1,24 +1,33 @@
-// K1: the intra-row stages of the blocked NTT.
+// K1 and K5: butterfly stages along the rows of a (R, C) array, one pass.
 //
-// Replaces: plonk_tpu/ops/pallas_ntt.py::_row_stages_kernel (called through
-// row_stages from plonk_tpu/ops/ntt.py:153-160).
+// Replaces:
+//   K1 plonk_tpu/ops/pallas_ntt.py::_row_stages_kernel (called through
+//      row_stages from plonk_tpu/ops/ntt.py:153-160), the intra-row stages
+//      of the blocked NTT;
+//   K5 plonk_tpu/ops/pallas_ntt.py::_full_row_kernel (called through
+//      row_transform, :188, from plonk_tpu/ops/fused_ntt.py::_row_pass),
+//      one complete size-C transform per row, the row passes of the
+//      five-step fused_ntt / fused_intt.
 //
 // Computes, for each C-wide row of a (R, C) array of Montgomery words, all
-// log2(C) radix-2 DIT stages with butterfly distance half < C, as the TPU
-// kernel does: at stage s (half = 2^s) the low lane j of a pair becomes
-// y[j] + y[j+half] * tw[s][j] and the high lane j+half becomes
-// y[j] - y[j+half] * tw[s][j+half]. The wrapper accepts only lane-periodic
-// tables, tw[s][j] == tw[s][j mod 2^s] (every table ops/ntt.py makes), so
-// both lanes of a pair share one twiddle and one Montgomery product: the
-// kernel reads the compact table of C - 1 words, stage s's 2^s distinct
-// values at offset 2^s - 1.
+// log2(C) radix-2 stages, as the TPU kernels do. DIT (K1, and K5's
+// bit-reversed -> natural direction): stages half = 1 .. C/2; at stage s
+// (half = 2^s) the low lane j of a pair becomes y[j] + y[j+half] * tw[s][j]
+// and the high lane j+half becomes y[j] - y[j+half] * tw[s][j+half]. DIF
+// (K5's natural -> bit-reversed direction): stages half = C/2 .. 1, the pair
+// (a, b) = (y[lo], y[lo+half]) becomes (a + b, (a - b) * tw[s][lo+half]).
+// The wrappers accept only lane-periodic tables, tw[s][j] == tw[s][j mod
+// 2^s] (every table ops/ntt.py and ops/fused_ntt.py make), so both lanes of
+// a pair share one twiddle and one Montgomery product: the kernel reads the
+// compact table of C - 1 words, stage s's 2^s distinct values at offset
+// 2^s - 1.
 //
 // Bound on the H100: device memory. Each row is read once and written once
 // (4 bytes of value per 31-bit word; the port's int64 I/O moves 8, a floor
 // above the values' bound); the log2(C) stages in between cost C/2
 // Montgomery products per stage and row, below the card's integer rate.
 //
-// Design. The TPU kernel ran one stage at a time over lane vectors. Here a
+// Design. The TPU kernels ran one stage at a time over lane vectors. Here a
 // block of 256 threads takes tiles of 2048 words (2048 / C whole rows) and
 // walks them grid-stride, with the grid at the SM count times the resident
 // blocks (at most 8 an SM), so that any row count fills the card in one
@@ -29,19 +38,23 @@
 // differ in three q bits and runs the three stages of those bits on its
 // registers; the tile goes through shared memory between rounds (4 rounds
 // and 3 barriers at C = 1024 instead of 10 barriers; S mod 3 stages take a
-// shorter first round whose spare register bits take the next q bits). S
-// is a template parameter, so each round's stage bits and shifts are
-// constants; the host fixes each round's positions and passes them in the
-// launch's __grid_constant__ geometry. The first round's 8 words are
-// neighbours, read with 16-byte loads; the last round stores them. Words
-// stay below 2p between stages (Harvey's lazy butterflies, for p < 2^30)
-// and become canonical at the store. The compact table is copied to
-// shared memory once per block, and a round reads the 7 distinct
-// twiddles of its 12 butterflies. Shared memory is swizzled
-// (q ^ (q >> 5) & 31) and the group index is spread over q bits of
+// shorter round, the lowest, whose spare register bits take the next q
+// bits). DIT runs the rounds from the lowest element bits up, DIF the same
+// rounds from the top down, each round's stages in reverse order, so both
+// directions share one geometry. S and the direction are template
+// parameters, so each round's stage bits and shifts are constants; the host
+// fixes each round's positions and passes them in the launch's
+// __grid_constant__ geometry. The lowest round's 8 words are neighbours,
+// moved with 16-byte loads (DIT) or stores (DIF). Words stay below 2p
+// between stages (Harvey's lazy butterflies, for p < 2^30: DIT
+// (a + u, a - u + 2p) with u = b * tw below 2p, DIF (a + b, (a - b + 2p) *
+// tw), sums folded below 2p) and become canonical at the store. The
+// compact table is copied to shared memory once per block, and a round
+// reads the 7 distinct twiddles of its 12 butterflies. Shared memory is
+// swizzled (q ^ (q >> 5) & 31) and the group index is spread over q bits of
 // distinct residues mod 5, so that a warp's 32 accesses hit 32 banks in
-// every round. The SM count and the occupancy are queried once per device
-// and width.
+// every round. The SM count and the occupancy are queried once per device,
+// width and direction.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -127,36 +140,70 @@ __device__ __forceinline__ void dit_round(uint32_t (&v)[8],
   }
 }
 
-// v[k] = the word at position base0 + k of tile `tile` (0 past the rows);
-// returns how many of the tile's positions hold words.
+// The B DIF stages of a round on registers v, the highest first (the
+// Gentleman-Sande butterfly): a' = a + b, b' = (a - b) * tw, both below 2p
+// for a, b below 2p; the twiddles as in dit_round (tw[s][lo + half] ==
+// tw[s][lo] for a lane-periodic table).
+template <int B>
+__device__ __forceinline__ void dif_round(uint32_t (&v)[8],
+                                          const uint32_t* tw, int glo,
+                                          uint32_t ebase, MontParams f) {
+  const uint32_t p2 = f.p << 1;
+#pragma unroll
+  for (int e = B - 1; e >= 0; --e) {
+    const int s = glo + e;
+    const uint32_t mask = (1u << s) - 1;
+    uint32_t w[4];
+#pragma unroll
+    for (int m = 0; m < (1 << e); ++m)
+      w[m] = tw[mask + ((ebase | ((uint32_t)m << glo)) & mask)];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (k & (1 << e)) continue;
+      const int h = k | (1 << e);
+      const uint32_t a = v[k], b = v[h];
+      v[k] = csub(a + b, p2);
+      v[h] = mul_lazy(a - b + p2, w[k & ((1 << e) - 1)], f);
+    }
+  }
+}
+
+// v[k] = the word at position base | P.qoff[k] of tile `tile` (0 past the
+// rows), pairs of neighbours in one 16-byte load when vec; returns how many
+// of the tile's positions hold words.
 __device__ __forceinline__ uint32_t load_tile(uint32_t (&v)[8],
                                               const long long* y,
                                               long long tile, long long R,
                                               int S, int rbits,
-                                              uint32_t base0, bool vec) {
+                                              const RoundPlan& P,
+                                              uint32_t base, bool vec) {
   const long long left = R - (tile << rbits);
   const uint32_t valid =
       left >= (1ll << rbits) ? kTileWords : (uint32_t)left << S;
-  const long long* src = y + ((size_t)tile << kTileBits) + base0;
+  const long long* src = y + ((size_t)tile << kTileBits);
   if (vec) {
 #pragma unroll
     for (int k = 0; k < 8; k += 2) {
+      const uint32_t q = base | P.qoff[k];
       longlong2 x = make_longlong2(0, 0);
-      if (base0 + k < valid) x = *reinterpret_cast<const longlong2*>(src + k);
+      if (q < valid) x = *reinterpret_cast<const longlong2*>(src + q);
       v[k] = (uint32_t)x.x;
       v[k + 1] = (uint32_t)x.y;
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k] = base0 + k < valid ? (uint32_t)src[k] : 0u;
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t q = base | P.qoff[k];
+      v[k] = q < valid ? (uint32_t)src[q] : 0u;
+    }
   }
   return valid;
 }
 
-// S is a template parameter, so that each round's stage bits, and with
-// them every shift of the butterflies and twiddle indices, are constants.
-template <int S>
+// S and the direction are template parameters, so that each round's stage
+// bits, and with them every shift of the butterflies and twiddle indices,
+// are constants.
+template <int S, bool DIF>
 __global__ void __launch_bounds__(kThreads)
     row_stages_kernel(const long long* __restrict__ y,
                       const uint32_t* __restrict__ tw,
@@ -172,10 +219,13 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t g = threadIdx.x;
   const bool vec = ((reinterpret_cast<uintptr_t>(y) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const RoundPlan& RL = G.plan[kRounds - 1];
-  const uint32_t base0 = group_base(G.plan[0], g);  // its qoff[k] == k
-  const uint32_t baseL = group_base(RL, g);
-  const bool vecL = vec && RL.qoff[1] == 1;
+  // the round that loads the tile and the one that stores it
+  const RoundPlan& PI = G.plan[DIF ? kRounds - 1 : 0];
+  const RoundPlan& PO = G.plan[DIF ? 0 : kRounds - 1];
+  const uint32_t baseI = group_base(PI, g);
+  const uint32_t baseO = group_base(PO, g);
+  const bool vecI = vec && PI.qoff[1] == 1;
+  const bool vecO = vec && PO.qoff[1] == 1;
 
   // the first tile's words go out before the twiddles are copied, and
   // each next tile's before the current one is transformed
@@ -183,7 +233,7 @@ __global__ void __launch_bounds__(kThreads)
   long long tile = blockIdx.x;
   uint32_t next_valid = 0;
   if (tile < tiles)
-    next_valid = load_tile(next, y, tile, R, S, kRowBits, base0, vec);
+    next_valid = load_tile(next, y, tile, R, S, kRowBits, PI, baseI, vecI);
   for (int i = threadIdx.x; i < C - 1; i += kThreads) tws[i] = __ldg(tw + i);
   __syncthreads();
 
@@ -193,42 +243,53 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < 8; ++k) v[k] = next[k];
     const uint32_t valid = next_valid;  // positions q < valid hold words
     if (tile + gridDim.x < tiles)
-      next_valid = load_tile(next, y, tile + gridDim.x, R, S, kRowBits,
-                             base0, vec);
+      next_valid = load_tile(next, y, tile + gridDim.x, R, S, kRowBits, PI,
+                             baseI, vecI);
     long long* dst = out + ((size_t)tile << kTileBits);
 #pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
+    for (int i = 0; i < kRounds; ++i) {
+      const int r = DIF ? kRounds - 1 - i : i;
       const RoundPlan& P = G.plan[r];
-      const bool last = r == kRounds - 1;
+      const bool last = i == kRounds - 1;
       const int b = r == 0 ? kFirst : 3;
       const int glo = r == 0 ? 0 : kFirst + 3 * (r - 1);
-      const uint32_t base = r == 0 ? base0 : (last ? baseL : group_base(P, g));
+      const uint32_t base =
+          i == 0 ? baseI : (last ? baseO : group_base(P, g));
       const uint32_t sbase = swz(base);
-      if (r > 0) {
+      if (i > 0) {
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = sm[sbase ^ P.soff[k]];
       }
       const uint32_t ebase = base & (C - 1);
-      if (b == 1)
-        dit_round<1>(v, tws, glo, ebase, f);
-      else if (b == 2)
-        dit_round<2>(v, tws, glo, ebase, f);
-      else
-        dit_round<3>(v, tws, glo, ebase, f);
+      if (DIF) {
+        if (b == 1)
+          dif_round<1>(v, tws, glo, ebase, f);
+        else if (b == 2)
+          dif_round<2>(v, tws, glo, ebase, f);
+        else
+          dif_round<3>(v, tws, glo, ebase, f);
+      } else {
+        if (b == 1)
+          dit_round<1>(v, tws, glo, ebase, f);
+        else if (b == 2)
+          dit_round<2>(v, tws, glo, ebase, f);
+        else
+          dit_round<3>(v, tws, glo, ebase, f);
+      }
       if (last) {
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = csub(v[k], f.p);
-        if (vecL) {
+        if (vecO) {
 #pragma unroll
           for (int k = 0; k < 8; k += 2)
-            if ((baseL | RL.qoff[k]) < valid)
-              *reinterpret_cast<longlong2*>(dst + (baseL | RL.qoff[k])) =
+            if ((baseO | PO.qoff[k]) < valid)
+              *reinterpret_cast<longlong2*>(dst + (baseO | PO.qoff[k])) =
                   make_longlong2((long long)v[k], (long long)v[k + 1]);
         } else {
 #pragma unroll
           for (int k = 0; k < 8; ++k)
-            if ((baseL | RL.qoff[k]) < valid)
-              dst[baseL | RL.qoff[k]] = (long long)v[k];
+            if ((baseO | PO.qoff[k]) < valid)
+              dst[baseO | PO.qoff[k]] = (long long)v[k];
         }
       } else {
 #pragma unroll
@@ -283,8 +344,8 @@ static Geometry row_geom(int S) {
   return G;
 }
 
-// One launch of row_stages_kernel<S> on R rows.
-template <int S>
+// One launch of row_stages_kernel<S, DIF> on R rows.
+template <int S, bool DIF>
 static cudaError_t launch(const long long* y, const uint32_t* tw,
                           long long* out, long long R, MontParams f,
                           cudaStream_t stream) {
@@ -298,7 +359,7 @@ static cudaError_t launch(const long long* y, const uint32_t* tw,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, row_stages_kernel<S>, kThreads, 0);
+        &per_sm, row_stages_kernel<S, DIF>, kThreads, 0);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     blocks_max[dev] = sms * (per_sm < kBlocksPerSm ? per_sm : kBlocksPerSm);
@@ -308,31 +369,41 @@ static cudaError_t launch(const long long* y, const uint32_t* tw,
       (R + (1ll << (kTileBits - S)) - 1) >> (kTileBits - S);
   const int blocks =
       tiles < blocks_max[dev] ? (int)tiles : blocks_max[dev];
-  row_stages_kernel<S><<<blocks, kThreads, 0, stream>>>(y, tw, out, R, G, f);
+  row_stages_kernel<S, DIF>
+      <<<blocks, kThreads, 0, stream>>>(y, tw, out, R, G, f);
   return cudaGetLastError();
 }
 
+template <bool DIF>
+static cudaError_t launch_width(const long long* y, const uint32_t* tw,
+                                long long* out, long long R, int S,
+                                MontParams f, cudaStream_t st) {
+  switch (S) {
+    case 1: return launch<1, DIF>(y, tw, out, R, f, st);
+    case 2: return launch<2, DIF>(y, tw, out, R, f, st);
+    case 3: return launch<3, DIF>(y, tw, out, R, f, st);
+    case 4: return launch<4, DIF>(y, tw, out, R, f, st);
+    case 5: return launch<5, DIF>(y, tw, out, R, f, st);
+    case 6: return launch<6, DIF>(y, tw, out, R, f, st);
+    case 7: return launch<7, DIF>(y, tw, out, R, f, st);
+    case 8: return launch<8, DIF>(y, tw, out, R, f, st);
+    case 9: return launch<9, DIF>(y, tw, out, R, f, st);
+    case 10: return launch<10, DIF>(y, tw, out, R, f, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // y, out: (R, C) int64; tw: the C - 1 uint32 words of the compact table;
-// C = 2^S, 1 <= S <= 10; p < 2^30.
+// C = 2^S, 1 <= S <= 10; dif: 0 for the DIT stages (K1, K5's bit-reversed
+// -> natural), 1 for DIF (K5's natural -> bit-reversed); p < 2^30.
 extern "C" int row_stages_launch(const void* y, const void* tw, void* out,
-                                 long long R, int S, unsigned p,
+                                 long long R, int S, int dif, unsigned p,
                                  unsigned n_prime, void* stream) {
   const long long* y_ = (const long long*)y;
   const uint32_t* tw_ = (const uint32_t*)tw;
   long long* out_ = (long long*)out;
   const MontParams f{p, n_prime};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (S) {
-    case 1: return (int)launch<1>(y_, tw_, out_, R, f, st);
-    case 2: return (int)launch<2>(y_, tw_, out_, R, f, st);
-    case 3: return (int)launch<3>(y_, tw_, out_, R, f, st);
-    case 4: return (int)launch<4>(y_, tw_, out_, R, f, st);
-    case 5: return (int)launch<5>(y_, tw_, out_, R, f, st);
-    case 6: return (int)launch<6>(y_, tw_, out_, R, f, st);
-    case 7: return (int)launch<7>(y_, tw_, out_, R, f, st);
-    case 8: return (int)launch<8>(y_, tw_, out_, R, f, st);
-    case 9: return (int)launch<9>(y_, tw_, out_, R, f, st);
-    case 10: return (int)launch<10>(y_, tw_, out_, R, f, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(dif ? launch_width<true>(y_, tw_, out_, R, S, f, st)
+                   : launch_width<false>(y_, tw_, out_, R, S, f, st));
 }

@@ -5,11 +5,12 @@ kernel `_row_stages_kernel`): the intra-row DIT stages of the blocked NTT.
 K5 `row_transform` ports `row_transform` (TPU kernel `_full_row_kernel`):
 one complete size-C transform per row, DIF (natural -> bit-reversed) or
 DIT (bit-reversed -> natural), the row pass of `ops/fused_ntt.fused_ntt`.
-The CUDA kernels are `csrc/row_stages.cu` and `csrc/row_transform.cu`;
-`row_stages_plain` and `row_transform_plain` beside them are the same
-functions in plain PyTorch, the CPU path and the kernels' test oracles.
-K1 reads the compact form of its lane-periodic stage table
-(`compact_twiddles`), made once per table.
+K1's stages are K5's DIT, so both run the CUDA kernel of
+`csrc/row_stages.cu`, templated on the direction; `row_stages_plain` and
+`row_transform_plain` beside them are the same functions in plain
+PyTorch, the CPU path and the kernels' test oracles. The kernel reads the
+compact form of the lane-periodic stage table (`compact_twiddles`), made
+once per table.
 """
 from __future__ import annotations
 
@@ -76,9 +77,9 @@ def _check_rows(name: str, y: torch.Tensor, tw_stack: torch.Tensor) -> None:
 
 @functools.lru_cache(maxsize=64)
 def compact_twiddles(tw_stack: torch.Tensor) -> torch.Tensor:
-    """K1's table: the C - 1 distinct words of a lane-periodic (log2 C, C)
-    stage table, stage s's 2^s values at offset 2^s - 1, as int32 (uint32
-    in the kernel). Refuses a table whose stage s is not periodic in 2^s
+    """K1's and K5's table: the C - 1 distinct words of a lane-periodic
+    (log2 C, C) stage table, stage s's 2^s values at offset 2^s - 1, as
+    int32 (uint32 in the kernel). Refuses a table whose stage s is not periodic in 2^s
     (tw[s][j] == tw[s][j mod 2^s]), the form that lets both lanes of a pair
     share one product. Made once per table, which is keyed by the tensor
     object itself: a table must not change after its first use."""
@@ -87,10 +88,29 @@ def compact_twiddles(tw_stack: torch.Tensor) -> torch.Tensor:
     for s in range(S):
         head = tw_stack[s, :1 << s]
         if not torch.equal(tw_stack[s], head.repeat(C >> s)):
-            raise ValueError(f"row_stages: stage {s} of the twiddle table is "
-                             f"not periodic in 2^{s}")
+            raise ValueError(f"stage {s} of the twiddle table is not "
+                             f"periodic in 2^{s}")
         parts.append(head)
     return torch.cat(parts).to(torch.int32)
+
+
+def _launch(name: str, p: int, n_prime: int, y: torch.Tensor,
+            tw_stack: torch.Tensor, dif: bool) -> torch.Tensor:
+    """One launch of csrc/row_stages.cu on the rows of y, counted under
+    `name` ("row_stages" for K1, "row_transform" for K5)."""
+    _check_rows(name, y, tw_stack)
+    if p >= 1 << 30:
+        raise ValueError(f"{name}: the kernel's lazy residues need p < 2^30")
+    R, C = y.shape
+    out = torch.empty_like(y)
+    if R == 0:
+        return out
+    err = kernels.library().row_stages_launch(
+        y.data_ptr(), compact_twiddles(tw_stack).data_ptr(), out.data_ptr(),
+        R, C.bit_length() - 1, int(dif), p, n_prime,
+        torch.cuda.current_stream(y.device).cuda_stream)
+    kernels.check_launch(err, name)
+    return out
 
 
 def row_stages(p: int, n_prime: int, y: torch.Tensor,
@@ -101,19 +121,7 @@ def row_stages(p: int, n_prime: int, y: torch.Tensor,
     takes lane-periodic tables only (those of ops/ntt.py) and p < 2^30."""
     if y.device.type == "cpu":
         return row_stages_plain(p, n_prime, y, tw_stack)
-    _check_rows("row_stages", y, tw_stack)
-    if p >= 1 << 30:
-        raise ValueError("row_stages: K1's lazy residues need p < 2^30")
-    R, C = y.shape
-    out = torch.empty_like(y)
-    if R == 0:
-        return out
-    err = kernels.library().row_stages_launch(
-        y.data_ptr(), compact_twiddles(tw_stack).data_ptr(), out.data_ptr(),
-        R, C.bit_length() - 1, p, n_prime,
-        torch.cuda.current_stream(y.device).cuda_stream)
-    kernels.check_launch(err, "row_stages")
-    return out
+    return _launch("row_stages", p, n_prime, y, tw_stack, False)
 
 
 def row_transform(p: int, n_prime: int, y: torch.Tensor,
@@ -121,17 +129,8 @@ def row_transform(p: int, n_prime: int, y: torch.Tensor,
     """One complete size-C transform per row of y (R, C): dif=True natural
     -> bit-reversed, dif=False bit-reversed -> natural. tw_stack as made by
     ops/ntt._stage_tables for n = C (Montgomery form). A CPU tensor takes
-    the plain version; a CUDA tensor launches K5."""
+    the plain version; a CUDA tensor launches K5, which takes lane-periodic
+    tables only (those of ops/fused_ntt.py) and p < 2^30."""
     if y.device.type == "cpu":
         return row_transform_plain(p, n_prime, y, tw_stack, dif)
-    _check_rows("row_transform", y, tw_stack)
-    R, C = y.shape
-    out = torch.empty_like(y)
-    if R == 0:
-        return out
-    err = kernels.library().row_transform_launch(
-        y.data_ptr(), tw_stack.data_ptr(), out.data_ptr(), R, C,
-        C.bit_length() - 1, int(dif), p, n_prime,
-        torch.cuda.current_stream(y.device).cuda_stream)
-    kernels.check_launch(err, "row_transform")
-    return out
+    return _launch("row_transform", p, n_prime, y, tw_stack, dif)

@@ -10,20 +10,25 @@ sharded value (`parallel/mesh.py`) and returns D fresh tensors:
 - `all_to_all(shards, split_axis, concat_axis)`: shard s's chunk j along
   `split_axis` goes to shard j, which concatenates the D chunks it
   receives in source order along `concat_axis`; the function of
-  `all_to_all_in_body` and of `lax.all_to_all(..., tiled=True)`. The
-  chunk reshuffle around the exchange is a PyTorch relayout, as JAX keeps
-  it in XLA.
+  `all_to_all_in_body` and of `lax.all_to_all(..., tiled=True)`. JAX keeps
+  the relayout around the exchange in XLA because there the exchange
+  crosses chips; on one card the relayout and the exchange are one copy:
+  `a2a_plan` turns the shapes into a few strides and K9 moves every word
+  once, from the shards as they are into the destinations' final layout.
 
 `exchange` picks how the bytes move: "cuda" launches the CUDA kernel
 (`csrc/collectives.cu`, one launch for all D shards), "plain" runs
 PyTorch copies (the counterpart of the `lax` collectives of JAX's
-`exchange="xla"`), and None takes the kernel for shards on a CUDA device
-and the plain copies for shards on the CPU. The TPU tile padding and the
-interpret modes are not ported.
+`exchange="xla"`; `all_to_all_plain` is the CPU path and K9's oracle), and
+None takes the kernel for shards on a CUDA device and the plain copies for
+shards on the CPU. The TPU tile padding and the interpret modes are not
+ported.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -83,25 +88,116 @@ def _check_shards(name: str, srcs, dsts, src_chunks: int) -> int:
     return chunk * srcs[0].element_size()
 
 
-def _launch(name: str, srcs, dsts, chunk_bytes: int) -> None:
-    """One launch of K8 (name "all_gather") or K9 ("all_to_all") over all
-    D shards, copying in the widest unit that divides the chunk and every
-    address."""
+class Plan(NamedTuple):
+    """How a collective moves its words, in elements: for every pair
+    (source s, destination j) the same block of nb x nr rows of `run`
+    contiguous elements, read from source s at j * src_pair + b * sb +
+    r * sr and written to destination j at s * dst_pair + b * db + r * dr
+    (b < nb, r < nr); each destination's shape."""
+    nb: int
+    nr: int
+    run: int
+    sb: int
+    sr: int
+    db: int
+    dr: int
+    src_pair: int
+    dst_pair: int
+    out_shape: tuple
+
+
+def _row_major(shape) -> list:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return strides[::-1]
+
+
+@functools.lru_cache(maxsize=256)
+def a2a_plan(shape: tuple, D: int, split_axis: int,
+             concat_axis: int) -> Plan:
+    """K9's plan for D contiguous shards of `shape` (split and concat axes
+    non-negative, the split axis a multiple of D). The block is a shard
+    with the split axis cut to one chunk; its axes merge wherever both
+    the source and the destination layout are contiguous across them. A
+    source breaks contiguity only at the split axis and a destination
+    only at the concat axis, so at most three axes remain: the batch, the
+    rows and the innermost run (a run of one element when the innermost
+    axis is not contiguous in both)."""
+    c = shape[split_axis] // D
+    block = list(shape)
+    block[split_axis] = c
+    out = list(shape)
+    if split_axis != concat_axis:
+        out[split_axis] = c
+        out[concat_axis] = shape[concat_axis] * D
+    ss, ds = _row_major(shape), _row_major(out)
+    src_pair = c * ss[split_axis]
+    dst_pair = (c if split_axis == concat_axis
+                else shape[concat_axis]) * ds[concat_axis]
+    if 0 in block:
+        return Plan(0, 0, 0, 0, 0, 0, 0, src_pair, dst_pair, tuple(out))
+    axes = []
+    for n, a, b in zip(block, ss, ds):
+        if n == 1:
+            continue
+        if axes and axes[-1][1] == n * a and axes[-1][2] == n * b:
+            axes[-1] = (axes[-1][0] * n, a, b)
+        else:
+            axes.append((n, a, b))
+    run = axes.pop() if axes and axes[-1][1:] == (1, 1) else (1, 1, 1)
+    if len(axes) > 2:
+        raise AssertionError(f"a2a_plan: {len(axes)} outer axes for "
+                             f"{shape}, split {split_axis}, concat "
+                             f"{concat_axis}")
+    (nb, sb, db), (nr, sr, dr) = [(1, 0, 0)] * (2 - len(axes)) + axes
+    return Plan(nb, nr, run[0], sb, sr, db, dr, src_pair, dst_pair,
+                tuple(out))
+
+
+def _unit(values) -> int:
+    """The widest copy unit (16, 8, 4, 2 or 1 bytes) dividing every
+    value."""
+    unit = 16
+    while unit > 1 and any(v % unit for v in values):
+        unit //= 2
+    return unit
+
+
+def _launch(name: str, srcs, dsts, plan: Plan) -> None:
+    """One launch of K8 (name "all_gather", plan from `_gather_plan`) or
+    K9 ("all_to_all") over all D shards, copying in the widest unit that
+    divides the run, the strides and every address."""
     if srcs[0].device.type != "cuda":
         raise ValueError(f"{name}: the kernel needs shards on a CUDA device")
-    if chunk_bytes == 0:
+    if plan.nb * plan.nr * plan.run == 0:
         return
     D = len(srcs)
+    es = srcs[0].element_size()
     addrs = [t.data_ptr() for t in srcs + dsts]
-    unit = 16
-    while unit > 1 and (chunk_bytes % unit or any(a % unit for a in addrs)):
-        unit //= 2
     src_arr = (ctypes.c_void_p * D)(*addrs[:D])
     dst_arr = (ctypes.c_void_p * D)(*addrs[D:])
-    launch = getattr(kernels.library(), f"{name}_launch")
-    err = launch(src_arr, dst_arr, D, chunk_bytes, unit,
-                 torch.cuda.current_stream(srcs[0].device).cuda_stream)
+    stream = torch.cuda.current_stream(srcs[0].device).cuda_stream
+    lib = kernels.library()
+    if name == "all_gather":
+        chunk_bytes = plan.run * es
+        err = lib.all_gather_launch(src_arr, dst_arr, D, chunk_bytes,
+                                    _unit(addrs + [chunk_bytes]), stream)
+    else:
+        lengths = [plan.run, plan.sb, plan.sr, plan.db, plan.dr,
+                   plan.src_pair, plan.dst_pair]
+        unit = _unit(addrs + [v * es for v in lengths])
+        err = lib.all_to_all_launch(src_arr, dst_arr, D, plan.nb, plan.nr,
+                                    *(v * es // unit for v in lengths), unit,
+                                    stream)
     kernels.check_launch(err, name)
+
+
+def _gather_plan(chunk: int) -> Plan:
+    """K8's copy as a plan: source s whole into slot s of each
+    destination."""
+    return Plan(1, 1, chunk, 0, 0, 0, 0, 0, chunk, ())
 
 
 def all_gather_into_plain(srcs, dsts) -> None:
@@ -126,18 +222,22 @@ def all_gather_into(srcs, dsts, exchange=None) -> None:
     if resolve_exchange(exchange, srcs[0].device) == "plain":
         all_gather_into_plain(srcs, dsts)
     else:
-        _launch("all_gather", list(srcs), list(dsts), chunk_bytes)
+        _launch("all_gather", list(srcs), list(dsts),
+                _gather_plan(chunk_bytes // srcs[0].element_size()))
 
 
 def all_to_all_into(srcs, dsts, exchange=None) -> None:
-    """K9's function: D sources and D destinations of one size, each
-    viewed as D chunks; chunk d of source s lands in chunk s of
-    destination d."""
+    """K9's function on contiguous chunks (the plan's simplest case): D
+    sources and D destinations of one size, each viewed as D chunks;
+    chunk d of source s lands in chunk s of destination d."""
     chunk_bytes = _check_shards("all_to_all", srcs, dsts, len(srcs))
     if resolve_exchange(exchange, srcs[0].device) == "plain":
         all_to_all_into_plain(srcs, dsts)
     else:
-        _launch("all_to_all", list(srcs), list(dsts), chunk_bytes)
+        D = len(srcs)
+        _launch("all_to_all", list(srcs), list(dsts),
+                a2a_plan((D * chunk_bytes // srcs[0].element_size(),), D, 0,
+                         0))
 
 
 def all_gather(shards, exchange=None) -> list[torch.Tensor]:
@@ -153,29 +253,41 @@ def all_gather(shards, exchange=None) -> list[torch.Tensor]:
     return outs
 
 
+def all_to_all_plain(shards, split_axis: int,
+                     concat_axis: int) -> list[torch.Tensor]:
+    """all_to_all by PyTorch copies, from its definition: destination j
+    concatenates chunk j of every shard along concat_axis (one
+    concatenation per destination)."""
+    D = len(shards)
+    chunks = [torch.chunk(s, D, dim=split_axis) for s in shards]
+    return [torch.cat([c[j] for c in chunks], dim=concat_axis)
+            for j in range(D)]
+
+
 def all_to_all(shards, split_axis: int, concat_axis: int,
                exchange=None) -> list[torch.Tensor]:
     """Tiled all-to-all over D shards of one shape: shard s's chunk j along
     `split_axis` goes to shard j, which concatenates what it receives in
-    source order along `concat_axis`. Returns D fresh tensors."""
+    source order along `concat_axis`. Returns D fresh tensors; through K9
+    the D views of one allocation, written by one launch."""
     D = len(shards)
     x = shards[0]
     split_axis %= x.dim()
     concat_axis %= x.dim()
+    if not 1 <= D <= MAX_SHARDS:
+        raise ValueError(f"all_to_all: need 1..{MAX_SHARDS} shards, got {D}")
     if x.shape[split_axis] % D:
         raise ValueError("split axis must divide the mesh axis size")
-    # -> (D, chunk) per shard with the split axis chunked and leading
-    moved = [torch.movedim(s, split_axis, 0).reshape(D, -1).contiguous()
-             for s in shards]
-    got = [torch.empty_like(m) for m in moved]
-    all_to_all_into(moved, got, exchange)
-    # slot s of got[d] is source s's chunk for d in the moved layout:
-    # restore the axis order per chunk, then concatenate the D chunks in
-    # source order along concat_axis
-    rest = tuple(torch.movedim(x, split_axis, 0).shape[1:])
-    out = []
-    for g in got:
-        chunks = torch.movedim(g.reshape((D, x.shape[split_axis] // D) + rest),
-                               1, split_axis + 1)
-        out.append(torch.cat(list(chunks.unbind(0)), dim=concat_axis))
-    return out
+    if any(s.shape != x.shape for s in shards):
+        raise ValueError("all_to_all: shards differ in shape")
+    if any(s.device != x.device for s in shards):
+        raise ValueError("all_to_all: all shards must be on one device")
+    if any(s.dtype != x.dtype for s in shards):
+        raise TypeError("all_to_all: shards differ in dtype")
+    if resolve_exchange(exchange, x.device) == "plain":
+        return all_to_all_plain(shards, split_axis, concat_axis)
+    plan = a2a_plan(tuple(x.shape), D, split_axis, concat_axis)
+    out = torch.empty((D,) + plan.out_shape, dtype=x.dtype, device=x.device)
+    dsts = list(out.unbind(0))
+    _launch("all_to_all", [s.contiguous() for s in shards], dsts, plan)
+    return dsts

@@ -65,10 +65,8 @@ def u256_arg(v: int) -> U256Arg:
 # C signature of every entry point: name -> argtypes (all return int, the
 # cudaError_t of the launch)
 _SIGNATURES = {
-    # y, compact uint32 twiddles, out, R, S, p, n_prime, stream
-    "row_stages_launch": [_P, _P, _P, _L, _I, _U, _U, _P],
-    # y, tw, out, R, C, S, dif, p, n_prime, stream
-    "row_transform_launch": [_P, _P, _P, _I, _I, _I, _I, _U, _U, _P],
+    # y, compact uint32 twiddles, out, R, S, dif, p, n_prime, stream
+    "row_stages_launch": [_P, _P, _P, _L, _I, _I, _U, _U, _P],
     # y, tw1, twm, tw2 (uint32 tables), out, nb, n1, n2, mirror, scale,
     # scaled, p, n_prime, passes (a mask: 1 first pass, 2 grid barrier,
     # 4 second pass), stream
@@ -90,8 +88,10 @@ _SIGNATURES = {
     "big_commit_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                           BigFieldArg, U256Arg, _P, _I, _I, _P, _P],
     # srcs[D], dsts[D] (arrays of pointers), D, chunk bytes, unit, stream
-    "all_gather_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],
-    "all_to_all_launch": [_P, _P, _I, ctypes.c_longlong, _I, _P],
+    "all_gather_launch": [_P, _P, _I, _L, _I, _P],
+    # srcs[D], dsts[D], D, nb, nr, then in units run, sb, sr, db, dr,
+    # src_pair, dst_pair; unit, stream
+    "all_to_all_launch": [_P, _P, _I] + [_L] * 9 + [_I, _P],
 }
 
 

@@ -2,8 +2,10 @@
 the JAX package: K8's and K9's plain versions against the Pallas kernels
 of plonk_tpu.parallel.pallas_collectives run on the TPU interpret machine
 (`interpret_mode="sim"`) over the 8-device CPU mesh, and against the
-concatenation semantics for D in {1, 2, 4, 8}. Exact equality; the
-port's shards all live on the CPU."""
+concatenation semantics for D in {1, 2, 4, 8}; and a PyTorch model of
+K9's index map (its host plan and its grid) against the plain version,
+lax.all_to_all and the Pallas kernel. Exact equality; the port's shards
+all live on the CPU."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -107,6 +109,123 @@ def test_all_to_all_matches_jax_a2a_kernel(jmesh8, split_axis,
         xl, "sp", split_axis, concat_axis, tiled=True)))
     got = CL.all_to_all(_shards(x, 8), split_axis, concat_axis)
     np.testing.assert_array_equal(torch.cat(got).numpy(), want)
+
+
+# csrc/collectives.cu's K9 cannot run here; _k9_model runs its index map:
+# the host plan (CL.a2a_plan) in the launch's copy units, the grid and the
+# thread index as all_to_all_launch and all_to_all_kernel derive them.
+
+_THREADS, _BATCH = 256, 4          # collectives.cu THREADS, kBatch
+
+
+def _k9_model(shards, split_axis: int, concat_axis: int):
+    """all_to_all as K9 computes it, each destination unit written by the
+    thread the kernel gives it; asserts each is written exactly once."""
+    D, x = len(shards), shards[0]
+    es = x.element_size()
+    plan = CL.a2a_plan(tuple(x.shape), D, split_axis, concat_axis)
+    lengths = [plan.run, plan.sb, plan.sr, plan.db, plan.dr, plan.src_pair,
+               plan.dst_pair]
+    k = CL._unit([v * es for v in lengths]) // es       # elements a unit
+    run, sb, sr, db, dr, sp, dp = (v // k for v in lengths)
+    tx_bits = 0
+    while tx_bits < 8 and (1 << tx_bits) < run:
+        tx_bits += 1
+    nseg = -(-run // (1 << tx_bits))
+    gx = -(-plan.nr // (_THREADS >> tx_bits)) * nseg
+    gy = min(-(-plan.nb // _BATCH), 65535)
+    t = torch.arange(_THREADS)[None, :]
+    bx = torch.arange(gx)[:, None]
+    u = (bx % nseg << tx_bits) + (t & ((1 << tx_bits) - 1))
+    r = (bx // nseg << (8 - tx_bits)) + (t >> tx_bits)
+    live = (u < run) & (r < plan.nr)
+    u, r = u[live], r[live]
+    outs = [torch.full((D,) + plan.out_shape, -1, dtype=x.dtype)[0]
+            for _ in range(D)]
+    src = [sh.reshape(-1, k) for sh in shards]
+    dst = [o.view(-1, k) for o in outs]
+    hits = [torch.zeros(o.shape[0], dtype=torch.int64) for o in dst]
+    for z in range(D * D):
+        s, j = divmod(z, D)
+        for by in range(gy):
+            for b0 in range(by * _BATCH, plan.nb, gy * _BATCH):
+                for b in range(b0, min(b0 + _BATCH, plan.nb)):
+                    di = s * dp + b * db + r * dr + u
+                    dst[j][di] = src[s][j * sp + b * sb + r * sr + u]
+                    hits[j].index_add_(0, di, torch.ones_like(di))
+    assert all(bool((h == 1).all()) for h in hits)
+    return outs
+
+
+# every exchange shape of the sharded 2^16 proof on 8 shards (chip_smoke.py
+# dist_cases: the transposes of the 2^18 coset transforms and of the 2^16
+# interpolations, both ways), then D = 1, odd rows, split == concat, a
+# batch of two leading axes
+A2A_CASES = ([(8, lead + shape, len(lead) + sp, len(lead) + ct)
+              for r, leads in ((512, ((5,), (10,), ())),
+                               (256, ((9,), (3,), ())))
+              for lead in leads
+              for shape, sp, ct in (((r // 8, r), 1, 0),
+                                    ((r, r // 8), 0, 1))]
+             + [(1, (3, 7), 1, 0), (8, (3, 8, 5), 1, 2), (8, (16, 24), 0, 0),
+                (8, (2, 3, 16, 64), 3, 2)])
+
+
+def _jax_a2a(x: np.ndarray, D: int, split_axis: int, concat_axis: int,
+             pallas: bool) -> np.ndarray:
+    """The shards of x (D of them along axis 0) through JAX's Pallas
+    all-to-all on the interpret machine, or lax.all_to_all, inside
+    shard_map over a D-device CPU mesh, concatenated."""
+    mesh = JMS.make_1d_mesh("sp", D)
+
+    def body(xl):
+        if pallas:
+            return all_to_all_in_body("sp", D, xl, split_axis, concat_axis,
+                                      "sim")
+        return jax.lax.all_to_all(xl, "sp", split_axis, concat_axis,
+                                  tiled=True)
+
+    fn = jax.jit(jax.shard_map(body, mesh=mesh,
+                               in_specs=PartitionSpec("sp"),
+                               out_specs=PartitionSpec("sp"),
+                               check_vma=False))
+    return np.asarray(fn(jnp.asarray(x.astype(np.uint32))), np.int64)
+
+
+@pytest.mark.parametrize("D,shape,split_axis,concat_axis", A2A_CASES)
+def test_all_to_all_plan_model_matches_plain_and_jax(D, shape, split_axis,
+                                                     concat_axis):
+    """K9's index map equals all_to_all_plain and lax.all_to_all at the
+    shape, and JAX's Pallas all-to-all (interpret mode, whose cost grows
+    steeply with size: minutes at 40 k words a shard) at the shape with
+    its trailing axes cut by 8 where they are longer than 8 (same batch,
+    axes and D)."""
+    rng = np.random.default_rng(sum(shape) + D)
+    small = tuple(n // 8 if i and n > 8 else n for i, n in enumerate(shape))
+    for sh, pallas in ((shape, False), (small, True)):
+        xs = [_words(rng, sh) for _ in range(D)]
+        shards = [torch.as_tensor(x) for x in xs]
+        got = _k9_model(shards, split_axis, concat_axis)
+        want = CL.all_to_all_plain(shards, split_axis, concat_axis)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+        jwant = _jax_a2a(np.concatenate(xs), D, split_axis, concat_axis,
+                         pallas)
+        np.testing.assert_array_equal(torch.cat(got).numpy(), jwant)
+
+
+def test_a2a_plan_axes():
+    """The plan merges what both layouts keep contiguous: the 2^18 path's
+    transposes are 5 x 64 rows of 64-word runs, the contiguous-chunk case
+    one run, and a split equal to the concat axis leading one run per
+    pair."""
+    assert CL.a2a_plan((5, 64, 512), 8, 2, 1)[:7] == (5, 64, 64, 64 * 512,
+                                                      512, 512 * 64, 64)
+    assert CL.a2a_plan((5, 512, 64), 8, 1, 2)[:7] == (5, 64, 64, 512 * 64,
+                                                      64, 64 * 512, 512)
+    assert CL.a2a_plan((40,), 8, 0, 0)[:3] == (1, 1, 5)
+    assert CL.a2a_plan((16, 24), 8, 0, 0)[:3] == (1, 1, 48)
+    assert CL.a2a_plan((3, 8, 5), 8, 1, 2).out_shape == (3, 1, 40)
 
 
 def test_exchange_selection():

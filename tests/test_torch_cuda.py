@@ -201,21 +201,57 @@ def test_proof_on_cuda_matches_cpu(dev):
 
 # ---- K5 (full-row transform), K6 (one-pass four-step), K7 (matmul) ----
 
-@pytest.mark.parametrize("R,C,dif", [(8, 8, True), (3, 2, False),
-                                     (2560, 512, True), (512, 512, False),
-                                     (5, 1024, True)])
+@pytest.mark.parametrize("dif", [True, False], ids=["dif", "dit"])
+@pytest.mark.parametrize("C", [1 << s for s in range(1, 11)])
+@pytest.mark.parametrize("R", [1, 3, 512, 2560])
 def test_row_transform_kernel_matches_plain(dev, R, C, dif):
+    """K5 in both directions on random rows and on edge rows (zeros,
+    p - 1, first-stage partners with lo = hi and with hi = p - lo, whose
+    sum lands on p: K5's lazy residues at their edge), one launch a
+    call."""
     from plonk_tpu_torch.ops import fused_ntt as FN
     from plonk_tpu_torch.ops.row_stages import (row_transform,
                                                 row_transform_plain)
     tw = FN._row_tables(Fr, SCALED_FR.root_of_unity(C), C, dev)
-    g = torch.Generator(device="cpu").manual_seed(R + C)
-    y = torch.randint(0, Fr.p, (R, C), generator=g).to(dev)
+    rng = np.random.default_rng(R + C + dif)
+    for vals in (rng.integers(0, Fr.p, size=(R, C)),
+                 edge_rows(Fr.p, R, C, rng, C // 2 if dif else 1)):
+        y = torch.as_tensor(vals, device=dev)
+        before = kernels.LAUNCHES["row_transform"]
+        got = row_transform(Fr.p, Fr.n_prime, y, tw, dif)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["row_transform"] == before + 1
+        assert torch.equal(got,
+                           row_transform_plain(Fr.p, Fr.n_prime, y, tw, dif))
+
+
+@pytest.mark.parametrize("R,C", [(4096, 1024), (40000, 64), (900000, 2)])
+def test_row_transform_kernel_walks_tiles(dev, R, C):
+    """More tiles than the grid holds, in both directions."""
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    from plonk_tpu_torch.ops.row_stages import (row_transform,
+                                                row_transform_plain)
+    tw = FN._row_tables(Fr, SCALED_FR.root_of_unity(C), C, dev)
+    y = torch.as_tensor(np.random.default_rng(R).integers(0, Fr.p,
+                                                          size=(R, C)),
+                        device=dev)
+    for dif in (True, False):
+        assert torch.equal(row_transform(Fr.p, Fr.n_prime, y, tw, dif),
+                           row_transform_plain(Fr.p, Fr.n_prime, y, tw, dif))
+
+
+def test_row_transform_kernel_refuses_other_tables(dev):
+    """K5 shares a twiddle between a pair's lanes: a table that is not
+    lane-periodic is refused on the card, before any launch."""
+    from plonk_tpu_torch.ops import fused_ntt as FN
+    from plonk_tpu_torch.ops.row_stages import row_transform
+    bad = FN._row_tables(Fr, SCALED_FR.root_of_unity(512), 512, dev).clone()
+    bad[4, 100] = bad[4, 101]
+    y = torch.zeros((2, 512), dtype=torch.int64, device=dev)
     before = kernels.LAUNCHES["row_transform"]
-    got = row_transform(Fr.p, Fr.n_prime, y, tw, dif)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["row_transform"] == before + 1
-    assert torch.equal(got, row_transform_plain(Fr.p, Fr.n_prime, y, tw, dif))
+    with pytest.raises(ValueError, match="periodic"):
+        row_transform(Fr.p, Fr.n_prime, y, bad, True)
+    assert kernels.LAUNCHES["row_transform"] == before
 
 
 @pytest.mark.parametrize("nb,n", [(1, 64), (3, 4), (2, 1 << 11),
@@ -530,26 +566,79 @@ def test_all_gather_kernel_matches_plain(dev, D, shape):
         assert torch.equal(a.cpu(), torch.cat(shards).cpu())
 
 
-@pytest.mark.parametrize("D,shape,split_axis,concat_axis",
-                         [(8, (9, 32, 256), 2, 1), (8, (9, 256, 32), 1, 2),
-                          (8, (5, 64, 512), 2, 1), (8, (64, 512), 1, 0),
-                          (1, (3, 7), 1, 0), (4, (3, 5, 4), 2, 1),
-                          (2, (6, 2), 1, 0)])
+# every exchange shape of the sharded 2^16 proof on 8 shards (chip_smoke.py
+# dist_cases: the transposes of the 2^18 coset transforms and of the 2^16
+# interpolations, both ways), then D = 1, odd rows, split == concat, two
+# leading batch axes, 8-byte and 1-byte words
+A2A_CASES = ([(8, lead + shape, len(lead) + sp, len(lead) + ct)
+              for r, leads in ((512, ((5,), (10,), ())),
+                               (256, ((9,), (3,), ())))
+              for lead in leads
+              for shape, sp, ct in (((r // 8, r), 1, 0),
+                                    ((r, r // 8), 0, 1))]
+             + [(1, (3, 7), 1, 0), (8, (3, 8, 5), 1, 2), (4, (3, 5, 4), 2, 1),
+                (2, (6, 2), 1, 0), (8, (16, 24), 0, 0), (8, (3, 2, 8, 40), 2, 2),
+                (8, (2, 3, 16, 64), 3, 2), (16, (2, 32, 3), 1, 2)])
+
+
+@pytest.mark.parametrize("D,shape,split_axis,concat_axis", A2A_CASES)
 def test_all_to_all_kernel_matches_plain(dev, D, shape, split_axis,
                                          concat_axis):
-    """Shapes of the 2^16 and 2^18 paths, D = 1, odd row counts and
-    8-byte chunks (the copy falls back from 16-byte vectors)."""
+    """One K9 launch a call equals the plain all_to_all, in int64 words and
+    in bytes (1-byte copy units)."""
     from plonk_tpu_torch.parallel import collectives as CL
     g = torch.Generator(device="cpu").manual_seed(sum(shape) + D)
-    shards = [torch.randint(0, 1 << 62, shape, generator=g).to(dev)
-              for _ in range(D)]
-    before = kernels.LAUNCHES["all_to_all"]
-    got = CL.all_to_all(shards, split_axis, concat_axis, exchange="cuda")
+    for dtype in (torch.int64, torch.uint8):
+        shards = [torch.randint(0, 1 << 62, shape, generator=g).to(dtype)
+                  .to(dev) for _ in range(D)]
+        before = kernels.LAUNCHES["all_to_all"]
+        got = CL.all_to_all(shards, split_axis, concat_axis, exchange="cuda")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["all_to_all"] == before + 1
+        want = CL.all_to_all_plain(shards, split_axis, concat_axis)
+        for a, b in zip(got, want, strict=True):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+_ONE_KERNEL = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from plonk_tpu_torch.parallel import collectives as CL
+cases = json.loads(sys.argv[1])
+calls = []
+for D, shape, split, concat in cases:
+    xs = [torch.randint(0, 1 << 62, shape, device="cuda") for _ in range(D)]
+    CL.all_to_all(xs, split, concat, "cuda")
+    calls.append((xs, split, concat))
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for xs, split, concat in calls:
+        CL.all_to_all(xs, split, concat, "cuda")
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["all_to_all"] == before + 1
-    want = CL.all_to_all(shards, split_axis, concat_axis, exchange="plain")
-    for a, b in zip(got, want, strict=True):
-        assert torch.equal(a, b)
+names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+print(json.dumps(names))
+"""
+
+
+def test_all_to_all_is_one_device_kernel(dev):
+    """Each all_to_all call through K9 is one device kernel and nothing
+    else (no copy before or after it): torch.profiler in a fresh process,
+    whose first profiler session sees the library's launches, over one
+    call at each shape of A2A_CASES."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cases = [c for c in A2A_CASES if c[0] == 8]
+    res = subprocess.run([sys.executable, "-c", _ONE_KERNEL,
+                          json.dumps(cases)], cwd=root, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    names = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(names) == len(cases), names
+    assert all("all_to_all_kernel" in n for n in names), names
 
 
 def test_collective_kernels_refuse_bad_shards(dev):
@@ -560,6 +649,18 @@ def test_collective_kernels_refuse_bad_shards(dev):
     with pytest.raises(ValueError, match="one device"):
         CL.all_gather_into(src, [torch.empty(16, dtype=torch.int64),
                                  torch.empty(16, dtype=torch.int64)], "cuda")
+    before = kernels.LAUNCHES["all_to_all"]
+    with pytest.raises(ValueError, match="one device"):
+        CL.all_to_all([src[0], src[1].cpu()], 0, 0, "cuda")
+    with pytest.raises(TypeError, match="dtype"):
+        CL.all_to_all([src[0], src[1].int()], 0, 0, "cuda")
+    with pytest.raises(ValueError, match="shape"):
+        CL.all_to_all([src[0], src[1][:6]], 0, 0, "cuda")
+    with pytest.raises(ValueError, match="1..16"):
+        CL.all_to_all([src[0][:0]] * 17, 0, 0, "cuda")
+    with pytest.raises(ValueError, match="divide"):
+        CL.all_to_all([src[0][:3], src[1][:3]], 0, 0, "cuda")
+    assert kernels.LAUNCHES["all_to_all"] == before
 
 
 def test_sharded_proof_on_cuda_matches_cpu(dev):

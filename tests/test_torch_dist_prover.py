@@ -147,7 +147,8 @@ def test_sharded_proof_launch_sites(small, monkeypatch):
     """One prove_scaled with the sharded prims (precompute inside) makes 15
     all-to-alls (3 per interpolation x 3, 2 per coset transform x 3), one
     all-gather and one commit per shard: the launches of K9, K8 and K2 on
-    a CUDA mesh. Counted on the CPU with the wrappers wrapped."""
+    a CUDA mesh. Counted on the CPU with the wrappers wrapped (an
+    all_to_all on CPU shards is one all_to_all_plain)."""
     ctx, circuit, _ = small
     calls = {"all_to_all": 0, "all_gather": 0, "commit_many": 0}
 
@@ -157,8 +158,8 @@ def test_sharded_proof_launch_sites(small, monkeypatch):
             return fn(*args, **kw)
         return run
 
-    monkeypatch.setattr(CL, "all_to_all_into",
-                        counted("all_to_all", CL.all_to_all_into))
+    monkeypatch.setattr(CL, "all_to_all_plain",
+                        counted("all_to_all", CL.all_to_all_plain))
     monkeypatch.setattr(CL, "all_gather_into",
                         counted("all_gather", CL.all_gather_into))
     monkeypatch.setattr(DP, "commit_many",

@@ -2,7 +2,9 @@
 version (plonk_tpu_torch.ops.row_stages) with the JAX package: the XLA
 transforms of plonk_tpu.ops.ntt, and the Pallas row-stage kernel run in
 interpret mode, as tests/test_pallas_ntt.py runs it; and a PyTorch model
-of K1's schedule against both. Exact equality."""
+of the schedule of csrc/row_stages.cu, K1's DIT stages and K5's DIF and
+DIT full-row transforms, against both and against JAX's Pallas full-row
+kernel. Exact equality."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -11,11 +13,13 @@ import torch
 from plonk_tpu.ops import ntt as JN
 from plonk_tpu.ops.field import MontField as JMontField
 from plonk_tpu.ops.pallas_ntt import row_stages as j_row_stages
+from plonk_tpu.ops.pallas_ntt import row_transform as j_row_transform
 from plonk_tpu.utils.params import SCALED_FR
 from plonk_tpu_torch.ops import ntt as N
 from plonk_tpu_torch.ops.field import MontField
 from plonk_tpu_torch.ops.row_stages import (compact_twiddles, row_stages,
-                                            row_stages_plain)
+                                            row_stages_plain,
+                                            row_transform_plain)
 
 F, J = MontField(SCALED_FR), JMontField(SCALED_FR)
 
@@ -71,8 +75,8 @@ def test_stage_tables_match_jax():
 
 # csrc/row_stages.cu cannot run here; these hold the index maps it is built
 # from (compact table, tile positions, rounds, twiddle entries) and its
-# lazy residues against the plain version and the Pallas kernel, and its
-# shared-memory swizzle, at every row width.
+# lazy residues in both directions against the plain versions and the
+# Pallas kernels, and its shared-memory swizzle, at every row width.
 
 _TILE_BITS = 11          # row_stages.cu kTileBits: 2048 words, 8 a thread
 
@@ -120,11 +124,16 @@ def _csub(a, m: int):
     return torch.where(a >= m, a - m, a)
 
 
-def _k1_model(y: torch.Tensor, compact: torch.Tensor) -> torch.Tensor:
-    """K1's schedule on y (R, C) in PyTorch: tiles of 2048 words, register
-    rounds of up to 3 DIT stages on each group's 8 positions, one lazy
+def _k1_model(y: torch.Tensor, compact: torch.Tensor,
+              dif: bool = False) -> torch.Tensor:
+    """The kernel's schedule on y (R, C) in PyTorch: tiles of 2048 words,
+    register rounds of up to 3 stages on each group's 8 positions, one lazy
     product a butterfly with its twiddle from the compact table, words
-    below 2p between stages and canonical at the store."""
+    below 2p between stages and canonical at the store. DIT (K1, K5's
+    bit-reversed -> natural) runs the rounds from the lowest element bits
+    up; DIF (K5's natural -> bit-reversed) the same rounds from the top
+    down, each round's stages from its highest, with the Gentleman-Sande
+    butterfly (a + b, (a - b + 2p) * tw)."""
     R, C = y.shape
     S = C.bit_length() - 1
     p2 = 2 * F.p
@@ -136,7 +145,7 @@ def _k1_model(y: torch.Tensor, compact: torch.Tensor) -> torch.Tensor:
         tile = torch.zeros(1 << _TILE_BITS, dtype=torch.int64)
         tile[:valid] = flat[origin:origin + valid]
         seen = torch.zeros_like(tile)
-        for b, glo, qoff, gpos in plans:
+        for b, glo, qoff, gpos in (plans[::-1] if dif else plans):
             g = torch.arange(1 << (_TILE_BITS - 3))
             base = sum((((g >> i) & 1) << pos for i, pos in enumerate(gpos)),
                        torch.zeros_like(g))
@@ -145,7 +154,7 @@ def _k1_model(y: torch.Tensor, compact: torch.Tensor) -> torch.Tensor:
                                                          dtype=torch.int64))
             v = tile[q]
             ebase = base & (C - 1)
-            for e in range(b):
+            for e in (reversed(range(b)) if dif else range(b)):
                 s = glo + e
                 mask = (1 << s) - 1
                 for k in range(8):
@@ -153,9 +162,15 @@ def _k1_model(y: torch.Tensor, compact: torch.Tensor) -> torch.Tensor:
                         continue
                     h = k | 1 << e
                     j = ebase | ((k & ((1 << e) - 1)) << glo)
-                    u = _mul_lazy(v[:, h], compact[mask + (j & mask)])
-                    v[:, h] = _csub(v[:, k] - u + p2, p2)
-                    v[:, k] = _csub(v[:, k] + u, p2)
+                    w = compact[mask + (j & mask)]
+                    if dif:
+                        a, bv = v[:, k].clone(), v[:, h].clone()
+                        v[:, k] = _csub(a + bv, p2)
+                        v[:, h] = _mul_lazy(a - bv + p2, w)
+                    else:
+                        u = _mul_lazy(v[:, h], w)
+                        v[:, h] = _csub(v[:, k] - u + p2, p2)
+                        v[:, k] = _csub(v[:, k] + u, p2)
             assert int(v.max()) < p2
             tile[q] = v
         assert bool((seen == len(plans)).all())   # each round covers the tile
@@ -199,11 +214,47 @@ def test_row_stages_schedule_model_matches_plain_and_pallas(C):
                                   np.asarray(jwant, np.int64))
 
 
+def _edge_rows(R: int, C: int, rng, half: int) -> torch.Tensor:
+    from plonk_tpu_torch.models.synthetic import edge_rows
+    return torch.as_tensor(np.concatenate([
+        rng.integers(0, F.p, size=(R // 2, C)),
+        edge_rows(F.p, R - R // 2, C, rng, half)]))
+
+
+@pytest.mark.parametrize("dif", [True, False], ids=["dif", "dit"])
+@pytest.mark.parametrize("C", [1 << s for s in range(1, 11)])
+def test_row_transform_schedule_model_matches_plain_and_pallas(C, dif):
+    """K5: the kernel's schedule in each direction, run in PyTorch on random
+    and edge rows (zeros, p - 1, first-stage partners with lo = hi and
+    with hi = p - lo) over two full tiles and a partial one, equals
+    row_transform_plain, which equals JAX's Pallas full-row kernel in
+    interpret mode. The table is a full row transform's, as
+    ops/fused_ntt.py makes it."""
+    w = SCALED_FR.root_of_unity(C)
+    tw = torch.as_tensor(F.encode_host(np.stack(
+        N._stage_tables(F.p, w, C, C))))
+    compact = compact_twiddles(tw).long()
+    rng = np.random.default_rng(C + dif)
+    R = 2 * (1 << _TILE_BITS) // C + 3
+    y = _edge_rows(R, C, rng, C // 2 if dif else 1)
+    want = row_transform_plain(F.p, F.n_prime, y, tw, dif)
+    assert torch.equal(_k1_model(y, compact, dif), want)
+    jwant = j_row_transform(J.p, J.n_prime,
+                            jnp.asarray(y[:8].numpy().astype(np.uint32)),
+                            jnp.asarray(tw.numpy().astype(np.uint32)), dif,
+                            block_rows=8, interpret=True)
+    np.testing.assert_array_equal(want[:8].numpy(),
+                                  np.asarray(jwant, np.int64))
+
+
+@pytest.mark.parametrize("dif", [True, False], ids=["dif", "dit"])
 @pytest.mark.parametrize("S", range(1, 11))
-def test_row_stages_rounds_hit_distinct_banks(S):
-    """In every round a warp's 32 threads, for each register, address 32
-    distinct banks of the swizzled tile (word q at q ^ (q >> 5) & 31)."""
-    for b, glo, qoff, gpos in _k1_plan(S):
+def test_row_stages_rounds_hit_distinct_banks(S, dif):
+    """In every round, in the order each direction runs them, a warp's 32
+    threads, for each register, address 32 distinct banks of the swizzled
+    tile (word q at q ^ (q >> 5) & 31)."""
+    plans = _k1_plan(S)
+    for b, glo, qoff, gpos in (plans[::-1] if dif else plans):
         g = torch.arange(32)
         base = sum(((g >> i) & 1) << pos for i, pos in enumerate(gpos))
         for k in range(8):
