@@ -45,15 +45,23 @@
 // parameters, so each round's stage bits and shifts are constants; the host
 // fixes each round's positions and passes them in the launch's
 // __grid_constant__ geometry. The lowest round's 8 words are neighbours,
-// moved with 16-byte loads (DIT) or stores (DIF). Words stay below 2p
+// loaded with 16-byte loads (DIT). Words stay below 2p
 // between stages (Harvey's lazy butterflies, for p < 2^30: DIT
 // (a + u, a - u + 2p) with u = b * tw below 2p, DIF (a + b, (a - b + 2p) *
-// tw), sums folded below 2p) and become canonical at the store. The
+// tw), sums folded below 2p) and become canonical at the store. DIF ends
+// in the lowest round, where a thread holds 8 neighbours and a warp 256
+// consecutive words: the warp passes them through its own part of the
+// shared tile, so that each store instruction writes 512 contiguous bytes
+// (16-byte stores straight from the registers, 64 bytes apart across the
+// warp, made DIF the slower direction). The
 // compact table is copied to shared memory once per block, and a round
 // reads the 7 distinct twiddles of its 12 butterflies. Shared memory is
 // swizzled (q ^ (q >> 5) & 31) and the group index is spread over q bits of
-// distinct residues mod 5, so that a warp's 32 accesses hit 32 banks in
-// every round. The SM count and the occupancy are queried once per device,
+// distinct residues mod 5 (in the lowest round over q bits 3-7 in order),
+// so that a warp's 32 accesses hit 32 banks in every round; 5 blocks an
+// SM fit the register budget, for one wave at the 2^18 path's 640 tiles
+// (a DIF instance left at 62 registers ran 4 an SM, and slower). The
+// SM count and the occupancy are queried once per device,
 // width and direction.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -64,6 +72,9 @@ constexpr int kThreads = 256;
 constexpr int kTileBits = 11;
 constexpr int kTileWords = 1 << kTileBits;  // 8 a thread
 constexpr int kBlocksPerSm = 8;             // blocks launched an SM, at most
+// blocks an SM that the register budget must allow (48 registers a
+// thread): 660 blocks hold the 640 tiles of 1.31 M words in one wave
+constexpr int kMinBlocksPerSm = 5;
 constexpr int kMaxDevices = 64;
 constexpr int kMaxRounds = 4;               // ceil(log2(1024) / 3)
 constexpr int kGroupBits = 8;               // log2(kThreads)
@@ -204,7 +215,7 @@ __device__ __forceinline__ uint32_t load_tile(uint32_t (&v)[8],
 // bits, and with them every shift of the butterflies and twiddle indices,
 // are constants.
 template <int S, bool DIF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     row_stages_kernel(const long long* __restrict__ y,
                       const uint32_t* __restrict__ tw,
                       long long* __restrict__ out, long long R,
@@ -276,7 +287,27 @@ __global__ void __launch_bounds__(kThreads)
         else
           dit_round<3>(v, tws, glo, ebase, f);
       }
-      if (last) {
+      if (last && DIF) {
+        // round 0 gives warp w the 256 positions from 256 w, 8 neighbours
+        // a thread: they go through the warp's own part of the tile, so
+        // that each store writes 32 pairs of neighbours, 512 bytes in a row
+#pragma unroll
+        for (int k = 0; k < 8; ++k) sm[sbase ^ P.soff[k]] = csub(v[k], f.p);
+        __syncwarp();
+        const uint32_t lane = g & 31;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t q = (g >> 5 << 8) | (j << 6) | (lane << 1);
+          const long long w0 = sm[swz(q)], w1 = sm[swz(q + 1)];
+          if (q >= valid) continue;
+          if (vec) {
+            *reinterpret_cast<longlong2*>(dst + q) = make_longlong2(w0, w1);
+          } else {
+            dst[q] = w0;
+            dst[q + 1] = w1;
+          }
+        }
+      } else if (last) {
 #pragma unroll
         for (int k = 0; k < 8; ++k) v[k] = csub(v[k], f.p);
         if (vecO) {
@@ -302,7 +333,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // The rounds of S stages on a tile of kTileBits q bits: 3 stage bits each
 // from the top, S mod 3 (or 3) at the bottom; a shorter first round's spare
-// register bits take the lowest free q bits.
+// register bits take the lowest free q bits. Round 0's registers are then q
+// bits 0-2, and its group bits the rest in order, so that warp w holds the
+// 256 positions from 256 w (its DIF store transposes them); the others
+// spread their low five group bits over q bits of distinct residues mod 5.
 static Geometry row_geom(int S) {
   Geometry G;
   const int rounds = (S + 2) / 3;
@@ -328,7 +362,7 @@ static Geometry row_geom(int S) {
       R.soff[k] = swz(R.qoff[k]);
     }
     int i = 0;
-    for (int r = 0; r < 5; ++r)
+    for (int r = 0; r < 5 && grp > 0; ++r)
       for (int pos = r; pos < 10; pos += 5)
         if (!(used >> pos & 1)) {
           R.gpos[i++] = pos;

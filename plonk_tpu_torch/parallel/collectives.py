@@ -35,6 +35,7 @@ import torch
 from ..utils import kernels
 
 MAX_SHARDS = 16                 # csrc/collectives.cu MAX_SHARDS
+A2A_BATCH = 4                   # csrc/collectives.cu kBatch
 
 
 def resolve_exchange(exchange, device: torch.device) -> str:
@@ -147,13 +148,18 @@ def a2a_plan(shape: tuple, D: int, split_axis: int,
         else:
             axes.append((n, a, b))
     run = axes.pop() if axes and axes[-1][1:] == (1, 1) else (1, 1, 1)
-    if len(axes) > 2:
-        raise AssertionError(f"a2a_plan: {len(axes)} outer axes for "
-                             f"{shape}, split {split_axis}, concat "
-                             f"{concat_axis}")
+    assert len(axes) <= 2, (shape, split_axis, concat_axis)
     (nb, sb, db), (nr, sr, dr) = [(1, 0, 0)] * (2 - len(axes)) + axes
-    return Plan(nb, nr, run[0], sb, sr, db, dr, src_pair, dst_pair,
-                tuple(out))
+    run = run[0]
+    # a thread moves up to A2A_BATCH batch rows, its loads in flight
+    # together: a lone run becomes rows of 64 elements, and without a
+    # batch the rows fold into A2A_BATCH groups (fewer, fuller threads)
+    if nb == nr == 1 and run > 64 and run % 64 == 0:
+        nr, run, sr, dr = run // 64, 64, 64, 64
+    if nb == 1 and nr % A2A_BATCH == 0:
+        nb, nr = A2A_BATCH, nr // A2A_BATCH
+        sb, db = nr * sr, nr * dr
+    return Plan(nb, nr, run, sb, sr, db, dr, src_pair, dst_pair, tuple(out))
 
 
 def _unit(values) -> int:

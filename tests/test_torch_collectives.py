@@ -115,7 +115,7 @@ def test_all_to_all_matches_jax_a2a_kernel(jmesh8, split_axis,
 # the host plan (CL.a2a_plan) in the launch's copy units, the grid and the
 # thread index as all_to_all_launch and all_to_all_kernel derive them.
 
-_THREADS, _BATCH = 256, 4          # collectives.cu THREADS, kBatch
+_THREADS, _BATCH = 256, CL.A2A_BATCH     # collectives.cu THREADS, kBatch
 
 
 def _k9_model(shards, split_axis: int, concat_axis: int):
@@ -216,9 +216,10 @@ def test_all_to_all_plan_model_matches_plain_and_jax(D, shape, split_axis,
 
 def test_a2a_plan_axes():
     """The plan merges what both layouts keep contiguous: the 2^18 path's
-    transposes are 5 x 64 rows of 64-word runs, the contiguous-chunk case
-    one run, and a split equal to the concat axis leading one run per
-    pair."""
+    transposes are 5 x 64 rows of 64-word runs, a split equal to the
+    concat axis leading one run per pair; without a batch axis the rows
+    fold into 4 batch groups, and a lone run longer than 64 words into
+    rows of 64 first."""
     assert CL.a2a_plan((5, 64, 512), 8, 2, 1)[:7] == (5, 64, 64, 64 * 512,
                                                       512, 512 * 64, 64)
     assert CL.a2a_plan((5, 512, 64), 8, 1, 2)[:7] == (5, 64, 64, 512 * 64,
@@ -226,6 +227,10 @@ def test_a2a_plan_axes():
     assert CL.a2a_plan((40,), 8, 0, 0)[:3] == (1, 1, 5)
     assert CL.a2a_plan((16, 24), 8, 0, 0)[:3] == (1, 1, 48)
     assert CL.a2a_plan((3, 8, 5), 8, 1, 2).out_shape == (3, 1, 40)
+    assert CL.a2a_plan((64, 512), 8, 1, 0)[:7] == (4, 16, 64, 16 * 512,
+                                                   512, 16 * 64, 64)
+    assert CL.a2a_plan((8 * 20480,), 8, 0, 0)[:7] == (4, 80, 64, 80 * 64,
+                                                      64, 80 * 64, 64)
 
 
 def test_exchange_selection():

@@ -99,7 +99,7 @@ def _k1_plan(S: int):
         qoff = [sum((k >> e & 1) << qpos[e] for e in range(3))
                 for k in range(8)]
         gpos = []
-        for r in range(5):
+        for r in range(5 if grp else 0):
             for pos in (r, r + 5):
                 if pos not in used:
                     gpos.append(pos)
@@ -260,6 +260,31 @@ def test_row_stages_rounds_hit_distinct_banks(S, dif):
         for k in range(8):
             q = base | qoff[k]
             assert len(set(((q ^ (q >> 5)) & 31).tolist())) == 32
+
+
+@pytest.mark.parametrize("S", range(1, 11))
+def test_row_transform_dif_store_transposes_warp_tiles(S):
+    """K5's DIF store: round 0 gives warp w the 256 positions from 256 w,
+    8 neighbours a thread, which it writes to the swizzled tile and reads
+    back as 4 rounds of 32 neighbour pairs (512 contiguous bytes a store),
+    each of its accesses on 32 distinct banks."""
+    b, glo, qoff, gpos = _k1_plan(S)[0]
+    assert qoff == list(range(8)) and gpos == list(range(3, _TILE_BITS))
+    swz = lambda q: (q ^ (q >> 5)) & 31                # noqa: E731
+    lane = torch.arange(32)
+    for w in range(8):
+        base = (w << 8) | (lane << 3)
+        assert sorted((base[:, None] | torch.arange(8)).reshape(-1)
+                      .tolist()) == list(range(w << 8, (w + 1) << 8))
+        for k in range(8):
+            assert len(set(swz(base | k).tolist())) == 32
+        got = []
+        for j in range(4):
+            q = (w << 8) | (j << 6) | (lane << 1)
+            for h in (0, 1):
+                assert len(set(swz(q + h).tolist())) == 32
+            got += torch.stack([q, q + 1], 1).reshape(-1).tolist()
+        assert got == list(range(w << 8, (w + 1) << 8))
 
 
 def test_compact_twiddles_refuses_non_periodic_tables():
