@@ -34,9 +34,9 @@ against their plain versions), K1's and K2's times and bounds beside a
 copy of K1's words, K2 on its packed table's other entry order and K2's
 product and additions timed alone, then phase 9's K3 checks, phase
 14's K6 checks, edge inputs and pass split and its K5 checks, and phase
-17's K8 and K9 checks, each with its times (K9 alone and as the whole
-all_to_all call, device and host time), in about two minutes, and no
-result line is printed:
+17's K8 and K9 checks, each with its times (K8's prefix scan and K9's
+whole all_to_all call with device and host time, K9 alone, the generic
+all-gather), in about two minutes, and no result line is printed:
 
     python3 chip_smoke.py --kernels
 
@@ -77,15 +77,27 @@ phases 4-7:
 
 Then the mesh-sharded scaled prover at 2^16 gates (parallel/), on the
 same context, with its eight shards all on the card:
- 17. K8 (all-gather) and K9 (all-to-all) against their plain versions,
-     word-equal, at every shape the sharded proof gives them, on one shard
-     and on odd row counts, each call one launch;
+ 17. K8 on the path (the grand product's prefix scan, which gathers the
+     shard totals, one launch for all shards) against its plain version
+     at 8 shards of 8192 words, on random and edge words, inclusive and
+     shifted; K8's generic all-gather and K9 (all-to-all) against their
+     plain versions at every shape the sharded proof gives K9, on one
+     shard, on odd row counts and at 8 x (64, 512); word-equal, each call
+     one launch;
  18. prove_scaled with make_dist_prims on 8 shards, through K8 and K9 and
      through plain copies: launches counted, diagnostics, the proof equal
-     to phase 6's, verify, tamper rejection;
+     to phase 6's, verify, tamper rejection; the device events and device
+     time of a sharded proof of each kind under torch.profiler in a fresh
+     process (--dist-events);
  19. proofs/s of the default prims and of both sharded prims in turns,
-     K8 and K9 against their plain versions (K9 alone and as the whole
-     all_to_all call, device and host time).
+     K8 and K9 against their plain versions: the prefix scan's device and
+     host time a call and its device events a call (fresh process), K9
+     alone and as the whole all_to_all call, the generic all-gather.
+
+With --dist-events MODE only that reading runs, in a process of its own,
+and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
+product on 8 x 8192 words) or proof-cuda or proof-plain (a sharded 2^16
+proof, with proofs/s).
 
 Any failure raises and exits non-zero before the result line; so does a
 machine without CUDA, and a directory that holds the script without the
@@ -118,6 +130,7 @@ import torch
 try:
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models import plonk_scaled as PS
+    from plonk_tpu_torch.models import synthetic as SY
     from plonk_tpu_torch.models.synthetic import (
         big_edge_rows, bn254_mul_circuit, edge_rows, from_words,
         square_chain_circuit, words_vec)
@@ -135,6 +148,7 @@ try:
     from plonk_tpu_torch.parallel import collectives as CL
     from plonk_tpu_torch.parallel import dist_ntt as DN
     from plonk_tpu_torch.parallel import dist_prover as DP
+    from plonk_tpu_torch.parallel import dist_scan as DS
     from plonk_tpu_torch.parallel import mesh as MS
     from plonk_tpu_torch.utils import kernels
     from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FQ, SCALED_FR
@@ -1127,7 +1141,8 @@ DIST_KERNELS = {
 }
 # launches of one prove_scaled with the sharded prims on D_MESH shards,
 # precompute inside: 3 all-to-alls per interpolation (3 of them) and 2 per
-# coset transform (3), one all-gather, one commit per shard
+# coset transform (3), one K8 (the grand product's prefix scan, which
+# gathers the shard totals), one commit per shard
 DIST_LAUNCHES = {"cuda": {"all_to_all": 15, "all_gather": 1,
                           "commit_many": D_MESH},
                  "plain": {"commit_many": D_MESH}}
@@ -1158,7 +1173,9 @@ EDGE_CASES = [  # (kernel, name, shards, shard shape, split, concat)
     ("all_to_all", "odd rows (3, 8, 5)", D_MESH, (3, 8, 5), 1, 2),
     ("all_gather", "one shard (7,)", 1, (7,), None, None),
     ("all_gather", "odd rows (3, 5)", D_MESH, (3, 5), None, None),
+    ("all_gather", "(64, 512)", D_MESH, (64, 512), None, None),
 ]
+SCAN_M = N_MAIN // D_MESH   # words a shard of the sharded grand product
 
 
 def exchange_bound(name: str, D: int, shard_numel: int):
@@ -1167,6 +1184,152 @@ def exchange_bound(name: str, D: int, shard_numel: int):
     writes D shards; K8 reads D shards and writes D*D."""
     out = D * shard_numel * (D if name == "all_gather" else 1)
     return bound_ms((D * shard_numel + out) * WORD_BYTES, 0)
+
+
+def scan_bound(D: int, m: int):
+    """K8's prefix scan on D shards of m words: the words read once and
+    written once and the D*D gathered totals written (4 bytes a 31-bit
+    word); two Montgomery products a word (the serial scan and the
+    prefix)."""
+    return bound_ms((2 * D * m + D * D) * WORD_BYTES,
+                    2 * D * m * MONT31_IMAD)
+
+
+def scan_checks(dev, F, errs: dict, tested: set):
+    """Phase 17's check of K8 on the path: dist_scan through the kernel
+    against its plain version, word-equal, on D_MESH shards of SCAN_M
+    words, random and edge words (SY.edge_scan_words), inclusive and
+    shifted (dist_grand_product's form), the scan and the gathered totals,
+    every word in [0, p), one launch a call. Returns (the mesh, the random
+    shards)."""
+    p = F.p
+    mesh = MS.make_1d_mesh("sp", D_MESH, device=dev)
+    rng = np.random.default_rng(19)
+    shards = {}
+    for name, words in (
+            ("random", rng.integers(0, p, size=D_MESH * SCAN_M)),
+            ("edge", SY.edge_scan_words(p, D_MESH, SCAN_M, rng))):
+        xs = [torch.as_tensor(c, device=dev)
+              for c in np.split(words, D_MESH)]
+        shards[name] = xs
+        for shifted in (False, True):
+            before = kernels.LAUNCHES["all_gather"]
+            got, tot = DS.dist_scan(F, mesh, xs, exchange="cuda",
+                                    shifted=shifted)
+            want, want_tot = DS.dist_scan(F, mesh, xs, exchange="plain",
+                                          shifted=shifted)
+            torch.cuda.synchronize()
+            form = "shifted" if shifted else "inclusive"
+            check(kernels.LAUNCHES["all_gather"] == before + 1,
+                  f"prefix scan {name} {form}: one launch a call")
+            err = max(int((g - w).abs().max()) for g, w in
+                      zip(got + tot, want + want_tot, strict=True))
+            canonical = all(bool(((g >= 0) & (g < p)).all())
+                            for g in got + tot)
+            print(f"prefix scan {name} {form} on {D_MESH} x {SCAN_M}: "
+                  f"max_abs_err {err}, words in [0, p) {canonical}")
+            check(err == 0 and canonical,
+                  f"prefix scan word-equal, {name} {form}")
+            errs["all_gather"] = max(errs.get("all_gather", 0), err)
+    tested.add(("prefix_scan", D_MESH, SCAN_M))
+    return mesh, shards["random"]
+
+
+def fresh_events(mode: str) -> dict:
+    """The --dist-events reading of `mode` from a fresh process (whose
+    first torch.profiler session sees the library's launches)."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--dist-events", mode],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"--dist-events {mode}: "
+          f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def scan_times(F, mesh, xs):
+    """K8 on the path at D_MESH x SCAN_M, as dist_grand_product: the
+    kernel's device ms by CUDA events over 100 calls queued behind a device
+    delay and its host µs a call; the plain version's device ms over 3
+    calls back to back and its host µs a call; the device events and
+    device ms a call of each under torch.profiler in a fresh process.
+    Returns the kernel_times entry."""
+    kern = lambda: DS.dist_grand_product(F, mesh, xs, exchange="cuda")
+    plain = lambda: DS.dist_grand_product(F, mesh, xs, exchange="plain")
+    k_ms, k_us = timed_calls(kern, reps=100, queue_ahead=True)
+    p_ms, p_us = timed_calls(plain, reps=3)
+    ev = {mode: fresh_events(f"scan-{mode}") for mode in ("cuda", "plain")}
+    bnd = scan_bound(D_MESH, SCAN_M)
+    print(f"all_gather prefix scan {D_MESH} x {SCAN_M} (dist_grand_product):"
+          f" kernel {k_ms:.6f} ms device, {k_us:.1f} us host per call (CUDA"
+          f" events, queued ahead); plain {p_ms:.6f} ms, {p_us:.1f} us host"
+          " per call (back to back); torch.profiler in a fresh process: "
+          + "; ".join(f"{mode} {e['events']:.2f} device events and "
+                      f"{e['device_ms']:.6f} ms per call"
+                      for mode, e in ev.items())
+          + f"; bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return k_ms, p_ms, (ev["cuda"]["events"], ev["cuda"]["device_ms"])
+
+
+def scan_shapes(F, dev) -> None:
+    """K8's prefix scan (CL.prefix_scan, shifted) alone at a few shard
+    counts and lengths, device ms by CUDA events over 100 calls queued
+    behind a device delay: what the launch, the look-back and the scan
+    each add."""
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    for D, m in ((1, 1), (8, 1), (16, 1), (1, SCAN_M), (8, SCAN_M),
+                 (16, SCAN_M), (8, 8 * SCAN_M)):
+        xs = [torch.randint(0, F.p, (m,), generator=gen).to(dev)
+              for _ in range(D)]
+        ms = cuda_ms(lambda: CL.prefix_scan(xs, F.p, F.n_prime, F.r_mod_p,
+                                            True), reps=100, queue_ahead=True)
+        print(f"prefix scan kernel at {D} x {m}: {ms:.6f} ms (CUDA events, "
+              f"queued ahead); bound {scan_bound(D, m)[0]:.6f} ms")
+
+
+def dist_events(dev, mode: str) -> None:
+    """--dist-events MODE: in this fresh process, the device events and
+    device ms a call under torch.profiler of scan-cuda / scan-plain
+    (dist_grand_product on D_MESH shards of SCAN_M random words, 20 calls)
+    or proof-cuda / proof-plain (a 2^16 proof under the sharded prims,
+    precompute done before, PROFILE_REPS proofs, then proofs/s over
+    PROOF_REPS synchronised proofs); prints one JSON line."""
+    kind, exchange = mode.split("-")
+    F = MontField(SCALED_FR)
+    mesh = MS.make_1d_mesh("sp", D_MESH, device=dev)
+    out = {"mode": mode}
+    if kind == "scan":
+        gen = torch.Generator(device="cpu").manual_seed(19)
+        xs = [torch.randint(0, F.p, (SCAN_M,), generator=gen).to(dev)
+              for _ in range(D_MESH)]
+        run = lambda rep: DS.dist_grand_product(F, mesh, xs,
+                                                exchange=exchange)
+        reps = 20
+    else:
+        ctx = PS.scaled_new(N_MAIN, device=dev)
+        sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, N_MAIN)
+        prims = DP.make_dist_prims(ctx, mesh, exchange=exchange)
+        pre = PS.precompute_circuit(ctx, sel, cp, prims)
+
+        def run(rep):
+            _, d = PS.prove_scaled(ctx, sel, cp, a, b, c, CH,
+                                   [v + 9 * rep for v in RND], prims=prims,
+                                   pre=pre)
+            check(bool(d.all_ok()), f"{mode} rep {rep} diagnostics")
+        reps = PROFILE_REPS
+    run(0)
+    torch.cuda.synchronize()
+    n_ev, dev_us, wall_s, _ = profiled_proofs(run, reps)
+    out.update(events=n_ev, device_ms=dev_us / 1e3,
+               profiled_ms=wall_s * 1e3)
+    if kind == "proof":
+        _, sec = wall(lambda: [run(1 + rep) for rep in range(PROOF_REPS)])
+        out["proofs_per_s"] = PROOF_REPS / sec
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps(out))
 
 
 def exchange_call(name: str, xs, split, concat, exchange):
@@ -1256,6 +1419,28 @@ def a2a_times(timed: dict):
     return kms, library
 
 
+def gather_times(timed: dict) -> dict:
+    """K8's generic all-gather (CL.all_gather_into) at each D_MESH shape
+    of `timed`: kernel_times against the plain exchange, and the plain
+    exchange's device ms over 20 calls queued behind a device delay (its
+    8 PyTorch launches a destination take the host ~0.5-1.5 ms a call);
+    with each shape's bound. Returns the kernel_times entries, keyed
+    "all_gather <case>"."""
+    kms = {}
+    for (kname, name), (xs, split, _) in timed.items():
+        if kname != "all_gather":
+            continue
+        plain = exchange_only(kname, xs, split, "plain")
+        kms[f"{kname} {name}"] = kernel_times(
+            exchange_only(kname, xs, split, "cuda"), plain)
+        lib = cuda_ms(plain, reps=20, queue_ahead=True)
+        print(f"{kname} {name}: plain exchange {lib:.6f} ms (CUDA events, "
+              f"queued ahead); bound "
+              f"{exchange_bound(kname, D_MESH, xs[0].numel())[0]:.9f} ms "
+              "(bytes)")
+    return kms
+
+
 def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     """Phases 17-19: K8 and K9 against their plain versions, then the 2^16
     proof under the sharded prims on D_MESH shards of the card, against
@@ -1264,32 +1449,38 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     Fr = ctx.Fr
     sel, cp, a, b, c = circuit
 
-    phase("17 K8 all_gather and K9 all_to_all vs plain at the 2^16 sharded "
-          "path's shapes")
+    phase("17 K8 (the grand product's prefix scan and all_gather) and K9 "
+          "all_to_all vs plain at the 2^16 sharded path's shapes")
     errs = {}
     timed, bounds, tested = exchange_checks(dev, Fr.p, ctx.n, ctx.domain8,
                                             errs)
+    scan_mesh, scan_xs = scan_checks(dev, Fr, errs, tested)
+    bounds["all_gather"] = scan_bound(D_MESH, SCAN_M)
 
     phase("18 a 2^16 proof under the sharded prims on 8 shards of the card")
     mesh = MS.make_1d_mesh("sp", D_MESH, device=dev)
     seen = set()
-    launch = CL._launch
+    launch, scan = CL._launch, DS.prefix_scan
 
     def recorded(name, srcs, *rest):
         seen.add((name, len(srcs), srcs[0].numel()))
         return launch(name, srcs, *rest)
 
+    def recorded_scan(shards, *rest):
+        seen.add(("prefix_scan", len(shards), shards[0].numel()))
+        return scan(shards, *rest)
+
     provers = {"default": lambda ch, rnd: ref_prover(a, b, c, ch, rnd)}
     launches = {}
     for exchange in ("cuda", "plain"):
         prims = DP.make_dist_prims(ctx, mesh, exchange=exchange)
-        CL._launch = recorded
+        CL._launch, DS.prefix_scan = recorded, recorded_scan
         kernels.reset_counts()
         try:
             (proof, diags), first_s = wall(lambda: PS.prove_scaled(
                 ctx, sel, cp, a, b, c, CH, RND, prims=prims))
         finally:
-            CL._launch = launch
+            CL._launch, DS.prefix_scan = launch, scan
         counts = dict(kernels.LAUNCHES)
         print(f"sharded {exchange}: prove_scaled with precompute "
               f"{first_s:.3f} s, launches {counts}")
@@ -1315,6 +1506,13 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
           f"17: {sorted(seen - tested)}")
     print(f"both sharded proofs equal phase 6's proof; {len(seen)} "
           "exchange shapes, each checked in phase 17")
+    for exchange in ("cuda", "plain"):
+        ev = fresh_events(f"proof-{exchange}")
+        print(f"sharded {exchange}, torch.profiler in a fresh process: "
+              f"{ev['events']:.1f} device events and {ev['device_ms']:.3f} "
+              f"ms of device time per proof; profiled proof "
+              f"{ev['profiled_ms']:.3f} ms; {ev['proofs_per_s']:.6f} "
+              f"proofs/s ({PROOF_REPS} synchronised proofs)")
 
     phase("19 proofs/s of the default and sharded prims in turns, kernel "
           "times")
@@ -1325,28 +1523,17 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
             (_, d), sec = wall(lambda: prover(CH, rnd))
             check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
             total[name] += sec
-    kms, a2a_library = a2a_times(timed)
-    library = {"all_to_all": a2a_library}
-    for (kname, name), (xs, split, _) in timed.items():
-        if kname != "all_gather":
-            continue
-        plain = exchange_only(kname, xs, split, "plain")
-        kms[f"{kname} {name}"] = kernel_times(
-            exchange_only(kname, xs, split, "cuda"), plain)
-        # its 8 PyTorch launches per destination take the host ~0.5-1.5 ms
-        # per call: 20 calls fit in the device delay
-        lib = cuda_ms(plain, reps=20, queue_ahead=True)
-        library.setdefault(kname, lib)
-        print(f"{kname} {name}: plain exchange {lib:.6f} ms (CUDA events, "
-              f"queued ahead); bound "
-              f"{exchange_bound(kname, D_MESH, xs[0].numel())[0]:.9f} ms "
-              "(bytes)")
+    kms = {"all_gather prefix scan": scan_times(Fr, scan_mesh, scan_xs)}
+    a2a_kms, a2a_library = a2a_times(timed)
+    kms.update(a2a_kms)
+    kms.update(gather_times(timed))
     print(f"card: {card}")
     for name in provers:
         print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
               f"({PROOF_REPS} synchronised proofs, in turns)")
     print_kernel_times(kms)
-    return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds, library)
+    return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds,
+                          {"all_to_all": a2a_library})
 
 
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
@@ -1624,9 +1811,14 @@ def kernels_only(dev, card: str) -> None:
             lambda a=args: RS.row_transform_plain(*a))
         print(f"row_transform {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); "
               f"int64 floor {int64_floor_ms(2 * args[2].numel()):.6f} ms")
-    phase("17 K9 all_to_all vs plain at the 2^16 sharded path's shapes")
-    timed, _, _ = exchange_checks(dev, F.p, N_MAIN, m, errs)
+    phase("17 K8 (the grand product's prefix scan and all_gather) and K9 "
+          "all_to_all vs plain at the 2^16 sharded path's shapes")
+    timed, _, tested = exchange_checks(dev, F.p, N_MAIN, m, errs)
+    scan_mesh, scan_xs = scan_checks(dev, F, errs, tested)
+    kms["all_gather prefix scan"] = scan_times(F, scan_mesh, scan_xs)
+    scan_shapes(F, dev)
     kms.update(a2a_times(timed)[0])
+    kms.update(gather_times(timed))
     print(f"card: {card}")
     print_kernel_times(kms)
     print(f"kernels checked and timed in {time.perf_counter() - T0:.1f} s")
@@ -1642,7 +1834,19 @@ def main() -> None:
                          "K8 and K9 against their plain versions with "
                          "their times, ptxas reports and K6's pass split; "
                          "no result line")
+    ap.add_argument("--dist-events", metavar="MODE",
+                    choices=[f"{k}-{x}" for k in ("scan", "proof")
+                             for x in ("cuda", "plain")],
+                    help="only print the device events and device time a "
+                         "call of the sharded grand product (scan-*) or a "
+                         "sharded proof (proof-*) under torch.profiler, "
+                         "as a JSON line (the kernels already built)")
     args = ap.parse_args()
+    if args.dist_events:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device visible to torch")
+        dist_events(torch.device("cuda:0"), args.dist_events)
+        return
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")

@@ -2,7 +2,9 @@
 //
 // Replaces:
 //   K8 plonk_tpu/parallel/pallas_collectives.py::_ring_kernel (called through
-//      gather_in_body, :111), the ring all-gather over remote DMA;
+//      gather_in_body, :111), the ring all-gather over remote DMA, which
+//      plonk_tpu/parallel/dist_scan.py::dist_prefix_prod runs between its
+//      local scans and its carries;
 //   K9 plonk_tpu/parallel/pallas_collectives.py::_a2a_kernel (called through
 //      all_to_all_in_body, :196), the direct all-to-all over remote DMA,
 //      with the relayout XLA runs around it (lax.all_to_all(..., tiled=True)).
@@ -26,10 +28,42 @@
 // after the first) and writes D*D chunks. At the prover's sizes K8 moves one
 // word per shard and is launch latency only.
 //
-// K8's design: a grid over (destination shard, tile): blockIdx.y is the
-// destination, blockIdx.x and the threads stride over its D*chunk bytes in
-// the widest unit (16-byte vectors where the chunk size and every address
-// allow it, else 8, 4, 2 or 1 bytes).
+// K8's generic all-gather: a grid over (chunk tile, source, destination),
+// the source and destination from blockIdx.y and blockIdx.z, so no element
+// index is divided; the threads stride over the chunk in the widest unit
+// (16-byte vectors where the chunk size and every address allow it, else
+// 8, 4, 2 or 1 bytes).
+//
+// K8 on the prover's path: the sharded prefix product in one launch. The
+// sharded grand product is a local scan a shard, the all-gather of the D
+// shard totals (one word each) and a multiply by the product of the totals
+// before the shard. Alone, the all-gather is a launch for D words between
+// hundreds of PyTorch launches; on one card the exchange of totals is a
+// look-back between thread blocks, so one launch does all three:
+//   - one block a shard, its shard index from an atomic ticket (not from
+//     blockIdx), so a block only ever waits on blocks that already run;
+//   - the block scans its shard in tiles of 8192 words: 8 words a thread
+//     serially, then a warp scan over __shfl_up_sync, then a scan of the
+//     32 warp totals in shared memory (Montgomery products, canonical);
+//   - thread 0 publishes the shard total in a flag word (status in the
+//     high half, value in the low: one 64-bit store), writes it into slot
+//     d of every shard's row of the gathered totals (all_gather's output),
+//     and looks back over the flags of the shards before it, folding
+//     aggregates until it meets an inclusive prefix; the product is the
+//     shard's carry (the Montgomery one for shard 0), and the block
+//     publishes its own inclusive prefix;
+//   - every word is multiplied once by its thread's prefix (the carry, the
+//     tiles before, the warps and lanes before) and written once, either
+//     inclusive or in the grand product's shifted form (word 0 of shard d
+//     its carry, word j the scan at j-1).
+// A shard longer than a tile is scanned twice: once for its total, once
+// with the carry. The ticket, a count of finished blocks and the D flags
+// live in a small buffer a (device, stream); the block that takes the last
+// ticket resets the ticket, and the last block to finish its look-back
+// clears the flags and the count, so the buffer is ready for the next
+// launch without a host-side reset. Bound: bytes (each word read and
+// written once, two products a word); at the prover's 8 x 8192 words it is
+// launch latency, as the all-gather alone was.
 //
 // K9's design. On one card the relayout and the exchange are one copy, so
 // the wrapper turns (shard shape, split axis, concat axis, D) into a host
@@ -51,6 +85,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "mont.cuh"
+
 namespace {
 
 constexpr int MAX_SHARDS = 16;
@@ -63,29 +99,30 @@ struct ShardPtrs {
   char* dst[MAX_SHARDS];
 };
 
-// K8: dst[d] (D*chunk units) <- the D sources in shard order.
+// K8: slot s of dst[d] (chunk units) <- src[s]; blockIdx.y is the source,
+// blockIdx.z the destination.
 template <typename V>
-__global__ void all_gather_kernel(const __grid_constant__ ShardPtrs ptrs,
-                                  int D, long long chunk) {
-  const int d = blockIdx.y;
-  V* dst = reinterpret_cast<V*>(ptrs.dst[d]);
-  const long long total = (long long)D * chunk;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += step) {
-    const int s = (int)(i / chunk);
-    dst[i] = reinterpret_cast<const V*>(ptrs.src[s])[i - (long long)s * chunk];
-  }
+__global__ void __launch_bounds__(THREADS)
+    all_gather_kernel(const __grid_constant__ ShardPtrs ptrs,
+                      long long chunk) {
+  const V* src = reinterpret_cast<const V*>(ptrs.src[blockIdx.y]);
+  V* dst = reinterpret_cast<V*>(ptrs.dst[blockIdx.z]) + blockIdx.y * chunk;
+  const long long step = (long long)gridDim.x * THREADS;
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < chunk; i += step)
+    dst[i] = src[i];
 }
 
 template <typename V>
 cudaError_t launch_gather(const ShardPtrs& ptrs, int D, long long chunk_bytes,
                           cudaStream_t stream) {
   const long long chunk = chunk_bytes / (long long)sizeof(V);
-  long long blocks = ((long long)D * chunk + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS_X) blocks = MAX_BLOCKS_X;
-  all_gather_kernel<V><<<dim3((unsigned)blocks, (unsigned)D), THREADS, 0,
-                         stream>>>(ptrs, D, chunk);
+  long long blocks = (chunk + THREADS - 1) / THREADS;
+  const long long cap = MAX_BLOCKS_X / (D * D) > 0 ? MAX_BLOCKS_X / (D * D)
+                                                   : 1;
+  if (blocks > cap) blocks = cap;
+  all_gather_kernel<V><<<dim3((unsigned)blocks, (unsigned)D, (unsigned)D),
+                         THREADS, 0, stream>>>(ptrs, chunk);
   return cudaGetLastError();
 }
 
@@ -156,6 +193,169 @@ bool load_ptrs(ShardPtrs& ptrs, const void* const* srcs, void* const* dsts,
   return true;
 }
 
+
+// ---- K8 on the prover's path: the sharded prefix product ----
+
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_ITEMS = 8;  // words a thread scans serially
+constexpr long long SCAN_TILE = (long long)SCAN_THREADS * SCAN_ITEMS;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+static_assert(SCAN_WARPS == 32, "one warp scans the warp totals");
+// a flag word: status in the high half, the value (< p < 2^31) in the low
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;  // shard total
+constexpr unsigned long long FLAG_PREFIX = 2ull << 32;     // inclusive prefix
+// the state buffer: [0] ticket, [1] finished look-backs, [2, 2 + D) flags
+
+struct ScanArgs {
+  const long long* src[MAX_SHARDS];
+  long long* dst[MAX_SHARDS];
+  long long* totals;  // D x D: row e, slot d holds shard d's total
+  unsigned long long* state;
+  long long m;  // words a shard
+  int D;
+  int shifted;
+  MontParams f;
+  uint32_t one;  // the Montgomery one, R mod p
+};
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// The inclusive scan of the tile at `base` (words past m count as the one):
+// v holds this thread's SCAN_ITEMS words scanned serially, excl the product
+// of the tile's words before them; returns the tile's product.
+__device__ __forceinline__ uint32_t scan_tile(const long long* src,
+                                              long long base, long long m,
+                                              uint32_t (&v)[SCAN_ITEMS],
+                                              uint32_t& excl, MontParams f,
+                                              uint32_t one,
+                                              uint32_t* warp_tot) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k)
+    v[k] = i0 + k < m ? (uint32_t)src[i0 + k] : one;
+#pragma unroll
+  for (int k = 1; k < SCAN_ITEMS; ++k) v[k] = mont_mul(v[k - 1], v[k], f);
+  uint32_t x = v[SCAN_ITEMS - 1];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x = mont_mul(y, x, f);
+  }
+  uint32_t lane_excl = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) lane_excl = one;
+  if (lane == 31) warp_tot[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    uint32_t s = warp_tot[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, s, off);
+      if (lane >= off) s = mont_mul(y, s, f);
+    }
+    warp_tot[lane] = s;
+  }
+  __syncthreads();
+  const uint32_t total = warp_tot[SCAN_WARPS - 1];
+  excl = w ? mont_mul(warp_tot[w - 1], lane_excl, f) : lane_excl;
+  __syncthreads();  // warp_tot is reused by the next tile
+  return total;
+}
+
+// This thread's words of the tile at `base`, times `pre` (the product of
+// every word of the shard's sequence before them, carry included): the
+// inclusive scan, or shifted by one word.
+__device__ __forceinline__ void store_tile(long long* dst, long long base,
+                                           long long m,
+                                           const uint32_t (&v)[SCAN_ITEMS],
+                                           uint32_t pre, int shifted,
+                                           MontParams f) {
+  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+  if (shifted) {
+    if (i0 < m) dst[i0] = pre;
+#pragma unroll
+    for (int k = 1; k < SCAN_ITEMS; ++k)
+      if (i0 + k < m) dst[i0 + k] = mont_mul(pre, v[k - 1], f);
+  } else {
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k)
+      if (i0 + k < m) dst[i0 + k] = mont_mul(pre, v[k], f);
+  }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    prefix_scan_kernel(const __grid_constant__ ScanArgs A) {
+  __shared__ uint32_t warp_tot[SCAN_WARPS];
+  __shared__ int shard;
+  __shared__ uint32_t carry_sh;
+  unsigned long long* ticket = A.state;
+  unsigned long long* done = A.state + 1;
+  unsigned long long* flags = A.state + 2;
+  const MontParams f = A.f;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(ticket, 1ull);
+    if (t == (unsigned long long)(A.D - 1)) atomicExch(ticket, 0ull);
+    shard = (int)t;
+  }
+  __syncthreads();
+  const int d = shard;
+  const long long* src = A.src[d];
+  uint32_t v[SCAN_ITEMS], excl;
+  const uint32_t first = scan_tile(src, 0, A.m, v, excl, f, A.one, warp_tot);
+  uint32_t total = first;
+  for (long long base = SCAN_TILE; base < A.m; base += SCAN_TILE) {
+    uint32_t u[SCAN_ITEMS], e;
+    total = mont_mul(total, scan_tile(src, base, A.m, u, e, f, A.one,
+                                      warp_tot), f);
+  }
+  if (threadIdx.x == 0) {
+    store_release(flags + d, (d ? FLAG_AGGREGATE : FLAG_PREFIX) | total);
+    for (int e = 0; e < A.D; ++e) A.totals[(long long)e * A.D + d] = total;
+    uint32_t carry = A.one;
+    for (int j = d - 1; j >= 0; --j) {
+      unsigned long long fl;
+      do {
+        fl = load_acquire(flags + j);
+      } while (!(fl >> 32));
+      carry = mont_mul((uint32_t)fl, carry, f);
+      if (fl >= FLAG_PREFIX) break;
+    }
+    if (d) store_release(flags + d, FLAG_PREFIX | mont_mul(carry, total, f));
+    carry_sh = carry;
+    // every read of the flags by this block is done: the last block to
+    // get here clears them for the next launch
+    __threadfence();
+    if (atomicAdd(done, 1ull) == (unsigned long long)(A.D - 1)) {
+      __threadfence();
+      for (int e = 0; e < A.D; ++e) flags[e] = 0;
+      atomicExch(done, 0ull);
+    }
+  }
+  __syncthreads();
+  long long* dst = A.dst[d];
+  uint32_t run = carry_sh, tile_total = first;
+  for (long long base = 0; base < A.m; base += SCAN_TILE) {
+    if (base) tile_total = scan_tile(src, base, A.m, v, excl, f, A.one,
+                                     warp_tot);
+    store_tile(dst, base, A.m, v, mont_mul(run, excl, f), A.shifted, f);
+    run = mont_mul(run, tile_total, f);
+  }
+}
+
 }  // namespace
 
 // srcs: D pointers to chunk_bytes each; dsts: D pointers to D*chunk_bytes
@@ -210,4 +410,30 @@ extern "C" int all_to_all_launch(const void* const* srcs, void* const* dsts,
     case 1: return (int)launch_a2a<uint8_t>(P, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// srcs, dsts: the D shards' pointers, m int64 words each, in Montgomery
+// form in [0, p); totals: D x D int64 words; state: 2 + D uint64 words,
+// zero before the first launch on a stream and left zero by each launch;
+// shifted: write the grand product's shifted form; one: R mod p.
+extern "C" int prefix_scan_launch(const void* const* srcs, void* const* dsts,
+                                  void* totals, void* state, int D,
+                                  long long m, int shifted, unsigned p,
+                                  unsigned n_prime, unsigned one,
+                                  void* stream) {
+  ScanArgs A{};
+  if (D < 1 || D > MAX_SHARDS || m < 1) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < D; ++s) {
+    A.src[s] = static_cast<const long long*>(srcs[s]);
+    A.dst[s] = static_cast<long long*>(dsts[s]);
+  }
+  A.totals = static_cast<long long*>(totals);
+  A.state = static_cast<unsigned long long*>(state);
+  A.m = m;
+  A.D = D;
+  A.shifted = shifted;
+  A.f = MontParams{p, n_prime};
+  A.one = one;
+  prefix_scan_kernel<<<D, SCAN_THREADS, 0, (cudaStream_t)stream>>>(A);
+  return (int)cudaGetLastError();
 }

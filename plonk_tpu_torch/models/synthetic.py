@@ -117,6 +117,19 @@ def big_edge_rows(p: int, R: int, C: int, dif: bool, rng) -> np.ndarray:
     return vals
 
 
+def edge_scan_words(p: int, D: int, m: int, rng) -> np.ndarray:
+    """D * m words below p (Montgomery form, R = 2^32) for the sharded
+    prefix product of D shards of m words: random words, p - 1, 1 and the
+    Montgomery one in turn, and one zero, in the middle of shard D // 2,
+    whose total is then zero and so every word of the later shards."""
+    x = rng.integers(0, p, size=D * m)
+    x[1::4] = p - 1
+    x[2::4] = 1
+    x[3::4] = (1 << 32) % p
+    x[(D // 2) * m + m // 2] = 0
+    return x.astype(np.int64)
+
+
 def edge_rows(p: int, R: int, C: int, rng, half: int = 1) -> np.ndarray:
     """(R, C) words below p (one machine word, the scaled curve's Fr) whose
     rows cycle through five kinds: random; zeros; p - 1; lo = hi; hi = p -

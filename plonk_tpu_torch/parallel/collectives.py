@@ -16,6 +16,14 @@ sharded value (`parallel/mesh.py`) and returns D fresh tensors:
   `a2a_plan` turns the shapes into a few strides and K9 moves every word
   once, from the shards as they are into the destinations' final layout.
 
+On the sharded prover's path K8 runs inside `prefix_scan`: one launch of
+`csrc/collectives.cu` computes the sharded prefix product of
+`parallel/dist_scan.py` for all D shards, the all-gather of the shard
+totals done by decoupled look-back between the shards' blocks; it returns
+the gathered totals beside the scan, so K8's function stays checkable.
+The plain version is `dist_scan`'s PyTorch code (local scans, `all_gather`,
+the carries).
+
 `exchange` picks how the bytes move: "cuda" launches the CUDA kernel
 (`csrc/collectives.cu`, one launch for all D shards), "plain" runs
 PyTorch copies (the counterpart of the `lax` collectives of JAX's
@@ -36,6 +44,9 @@ from ..utils import kernels
 
 MAX_SHARDS = 16                 # csrc/collectives.cu MAX_SHARDS
 A2A_BATCH = 4                   # csrc/collectives.cu kBatch
+SCAN_THREADS = 1024             # csrc/collectives.cu SCAN_THREADS
+SCAN_ITEMS = 8                  # csrc/collectives.cu SCAN_ITEMS
+SCAN_STATE_WORDS = 2 + MAX_SHARDS   # ticket, finished count, flags
 
 
 def resolve_exchange(exchange, device: torch.device) -> str:
@@ -297,3 +308,54 @@ def all_to_all(shards, split_axis: int, concat_axis: int,
     dsts = list(out.unbind(0))
     _launch("all_to_all", [s.contiguous() for s in shards], dsts, plan)
     return dsts
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_state(device: torch.device, stream: int) -> torch.Tensor:
+    """prefix_scan's ticket, count of finished look-backs and shard flags
+    for launches on `stream` of `device`: zero between launches (the
+    kernel's blocks reset them). One a stream, so that launches that may
+    overlap never share one."""
+    return torch.zeros(SCAN_STATE_WORDS, dtype=torch.int64, device=device)
+
+
+def prefix_scan(shards, p: int, n_prime: int, one: int,
+                shifted: bool = False):
+    """K8 on the prover's path: the sharded prefix product of D shards of
+    m Montgomery words in [0, p) on one CUDA device, in one launch.
+    Returns (D outputs, D gathered totals), each a list of views of one
+    allocation: output d is shard d's inclusive scan times the product of
+    the totals of shards 0 .. d-1 (its carry; `one` for shard 0), or with
+    `shifted` the grand product's form (word 0 the carry, word j the scan
+    at j - 1); totals d holds the D shard totals in shard order, the
+    all-gather of the totals."""
+    D = len(shards)
+    if not 1 <= D <= MAX_SHARDS:
+        raise ValueError(f"prefix_scan: need 1..{MAX_SHARDS} shards, got {D}")
+    x = shards[0]
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("prefix_scan: the kernel needs shards on a CUDA "
+                         "device")
+    if any(s.device != dev for s in shards):
+        raise ValueError("prefix_scan: all shards must be on one device")
+    if any(s.dtype != torch.int64 for s in shards):
+        raise TypeError("prefix_scan: int64 words expected")
+    m = x.shape[0] if x.dim() == 1 else 0
+    if m < 1 or any(s.shape != (m,) for s in shards):
+        raise ValueError("prefix_scan: D 1-D shards of one length >= 1 "
+                         "expected")
+    if not all(s.is_contiguous() for s in shards):
+        raise ValueError("prefix_scan: shards must be contiguous")
+    out = torch.empty((D, m), dtype=torch.int64, device=dev)
+    totals = torch.empty((D, D), dtype=torch.int64, device=dev)
+    outs = list(out.unbind(0))
+    src_arr = (ctypes.c_void_p * D)(*[s.data_ptr() for s in shards])
+    dst_arr = (ctypes.c_void_p * D)(*[o.data_ptr() for o in outs])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kernels.library().prefix_scan_launch(
+        src_arr, dst_arr, totals.data_ptr(),
+        _scan_state(dev, stream).data_ptr(), D, m, int(shifted), p, n_prime,
+        one, stream)
+    kernels.check_launch(err, "all_gather")
+    return outs, list(totals.unbind(0))

@@ -9,8 +9,9 @@ builds a ProverPrims whose heavy steps run over the D shards of a mesh
   (`dist_ntt`, its transposes K9 on a CUDA mesh); the coset transforms
   stay in the (k1, k2) transposed layout through the pointwise quotient
   algebra, and the coset-point table is permuted on the host to match;
-- grand product: the sharded prefix scan (`dist_scan`, its totals K8 on a
-  CUDA mesh);
+- grand product: the sharded prefix scan (`dist_scan`: on a CUDA mesh
+  one K8 launch that scans the shards, gathers their totals and writes
+  the accumulator);
 - commitments: the fixed-base window table split along its point axis,
   each shard's Jacobian partial sum over its slice (`ops/commit.py`: K2 on
   a CUDA mesh), the partials gathered and folded in shard order.

@@ -92,6 +92,9 @@ _SIGNATURES = {
     # srcs[D], dsts[D], D, nb, nr, then in units run, sb, sr, db, dr,
     # src_pair, dst_pair; unit, stream
     "all_to_all_launch": [_P, _P, _I] + [_L] * 9 + [_I, _P],
+    # srcs[D], dsts[D], totals (D, D), state, D, m, shifted, p, n_prime,
+    # one, stream
+    "prefix_scan_launch": [_P, _P, _P, _P, _I, _L, _I, _U, _U, _U, _P],
 }
 
 

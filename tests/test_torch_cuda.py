@@ -550,7 +550,8 @@ def test_bn254_proof_on_cuda_matches_cpu(dev):
 # ---- K8 (all-gather) and K9 (all-to-all) over shards on one card ----
 
 @pytest.mark.parametrize("D,shape", [(8, (1,)), (8, (3, 5)), (1, (7,)),
-                                     (4, (64, 512)), (16, (2, 3))])
+                                     (4, (64, 512)), (16, (2, 3)),
+                                     (8, (64, 512)), (3, (5, 3))])
 def test_all_gather_kernel_matches_plain(dev, D, shape):
     from plonk_tpu_torch.parallel import collectives as CL
     g = torch.Generator(device="cpu").manual_seed(D + len(shape))
@@ -698,3 +699,145 @@ def test_sharded_proof_on_cuda_matches_cpu(dev):
             assert int(getattr(proofs[0], name)) == int(getattr(proof,
                                                                 name)), name
     assert int(proofs[1].r_z) == 91913729
+
+
+# ---- K8 on the prover's path: the sharded prefix product in one launch ----
+
+def _scan_shards(dev, D: int, m: int, edge: bool, seed: int) -> list:
+    from plonk_tpu_torch.models.synthetic import edge_scan_words
+    rng = np.random.default_rng(seed)
+    x = (edge_scan_words(Fr.p, D, m, rng) if edge
+         else rng.integers(0, Fr.p, size=D * m))
+    return [torch.as_tensor(c, device=dev) for c in np.split(x, D)]
+
+
+def _assert_scan_equal(got, want):
+    (outs, totals), (want_outs, want_totals) = got, want
+    for a, b in zip(outs + totals, want_outs + want_totals, strict=True):
+        assert torch.equal(a, b)
+        assert bool(((a >= 0) & (a < Fr.p)).all())
+
+
+@pytest.mark.parametrize("m", [1, 7, 8192, 65536])
+@pytest.mark.parametrize("D", [1, 2, 8, 16])
+def test_prefix_scan_kernel_matches_plain(dev, D, m):
+    """dist_scan through K8's prefix-scan kernel equals the plain version
+    word for word (scan, shifted form and gathered totals, all in [0, p)),
+    on random words and on edge words (0, p - 1, 1, the Montgomery one, a
+    zero total); one K8 launch a call."""
+    from plonk_tpu_torch.parallel import dist_scan as DS
+    from plonk_tpu_torch.parallel import mesh as MS
+    mesh = MS.make_1d_mesh("sp", D, device=dev)
+    for edge in (False, True):
+        shards = _scan_shards(dev, D, m, edge, D * m)
+        for shifted in (False, True):
+            before = kernels.LAUNCHES["all_gather"]
+            got = DS.dist_scan(Fr, mesh, shards, exchange="cuda",
+                               shifted=shifted)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["all_gather"] == before + 1
+            _assert_scan_equal(got, DS.dist_scan(Fr, mesh, shards,
+                                                 exchange="plain",
+                                                 shifted=shifted))
+
+
+def test_prefix_scan_kernel_on_two_streams(dev):
+    """Launches on two streams may overlap: each stream has its own ticket
+    and flags, so both scans come out right."""
+    from plonk_tpu_torch.parallel import dist_scan as DS
+    from plonk_tpu_torch.parallel import mesh as MS
+    mesh = MS.make_1d_mesh("sp", 8, device=dev)
+    inputs = [_scan_shards(dev, 8, 8192, False, s) for s in range(2)]
+    wants = [DS.dist_scan(Fr, mesh, x, exchange="plain") for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for _ in range(20):
+        outs = []
+        for st, x in zip(streams, inputs):
+            with torch.cuda.stream(st):
+                outs.append(DS.dist_scan(Fr, mesh, x, exchange="cuda"))
+        torch.cuda.synchronize()
+        for got, want in zip(outs, wants):
+            _assert_scan_equal(got, want)
+
+
+def test_prefix_scan_kernel_leaves_its_state_ready(dev):
+    """200 launches in a row on one stream, with no host step between
+    them, at D alternating between 8, 3 and 16: every launch finds its
+    ticket and flags ready, which the kernel's blocks reset."""
+    from plonk_tpu_torch.parallel import dist_scan as DS
+    from plonk_tpu_torch.parallel import mesh as MS
+    cases = []
+    for D in (8, 3, 16):
+        mesh = MS.make_1d_mesh("sp", D, device=dev)
+        x = _scan_shards(dev, D, 1000, D == 3, D)
+        cases.append((mesh, x, DS.dist_scan(Fr, mesh, x, exchange="plain",
+                                            shifted=D == 16)))
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["all_gather"]
+    got = [DS.dist_scan(Fr, mesh, x, exchange="cuda",
+                        shifted=len(x) == 16)
+           for k in range(200) for mesh, x, _ in [cases[k % 3]]]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["all_gather"] == before + 200
+    for k, g in enumerate(got):
+        _assert_scan_equal(g, cases[k % 3][2])
+
+
+_ONE_SCAN = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from plonk_tpu_torch.ops.field import MontField
+from plonk_tpu_torch.parallel import dist_scan as DS
+from plonk_tpu_torch.parallel import mesh as MS
+from plonk_tpu_torch.utils.params import SCALED_FR
+F = MontField(SCALED_FR)
+mesh = MS.make_1d_mesh("sp", 8)
+xs = [torch.randint(0, F.p, (8192,), device="cuda") for _ in range(8)]
+for fn in (DS.dist_prefix_prod, DS.dist_grand_product):
+    fn(F, mesh, xs)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in (DS.dist_prefix_prod, DS.dist_grand_product):
+        fn(F, mesh, xs)
+    torch.cuda.synchronize()
+names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+print(json.dumps(names))
+"""
+
+
+def test_prefix_scan_is_one_device_kernel(dev):
+    """dist_prefix_prod and dist_grand_product on a CUDA mesh are one
+    device kernel each and nothing else (no PyTorch field launch, no copy
+    around it): torch.profiler in a fresh process, whose first profiler
+    session sees the library's launches."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _ONE_SCAN], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    names = json.loads(res.stdout.strip().splitlines()[-1])
+    assert len(names) == 2, names
+    assert all("prefix_scan_kernel" in n for n in names), names
+
+
+def test_prefix_scan_refuses_bad_shards(dev):
+    from plonk_tpu_torch.parallel import collectives as CL
+    x = torch.ones(8, dtype=torch.int64, device=dev)
+    before = kernels.LAUNCHES["all_gather"]
+    args = (Fr.p, Fr.n_prime, Fr.r_mod_p)
+    with pytest.raises(ValueError, match="one device"):
+        CL.prefix_scan([x, x.cpu()], *args)
+    with pytest.raises(TypeError, match="int64"):
+        CL.prefix_scan([x, x.int()], *args)
+    with pytest.raises(ValueError, match="one length"):
+        CL.prefix_scan([x, x[:4]], *args)
+    with pytest.raises(ValueError, match="one length"):
+        CL.prefix_scan([x[:0], x[:0]], *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        CL.prefix_scan([x[::2], x[1::2]], *args)
+    assert kernels.LAUNCHES["all_gather"] == before
