@@ -42,28 +42,39 @@
 // look-back between thread blocks, so one launch does all three:
 //   - one block a shard, its shard index from an atomic ticket (not from
 //     blockIdx), so a block only ever waits on blocks that already run;
-//   - the block scans its shard in tiles of 8192 words: 8 words a thread
-//     serially, then a warp scan over __shfl_up_sync, then a scan of the
-//     32 warp totals in shared memory (Montgomery products, canonical);
-//   - thread 0 publishes the shard total in a flag word (status in the
-//     high half, value in the low: one 64-bit store), writes it into slot
-//     d of every shard's row of the gathered totals (all_gather's output),
-//     and looks back over the flags of the shards before it, folding
-//     aggregates until it meets an inclusive prefix; the product is the
-//     shard's carry (the Montgomery one for shard 0), and the block
-//     publishes its own inclusive prefix;
+//   - the block (512 threads) scans its shard in tiles of 8192 words,
+//     loaded and stored coalesced through shared memory (a pad word every
+//     32, free of bank conflicts both ways): 16 words a thread serially,
+//     then a warp scan over __shfl_up_sync, then a scan of the 16 warp
+//     totals in shared memory (Montgomery products, canonical);
+//   - warp 0 publishes the shard total in a flag word (status in the high
+//     half, value in the low: one 64-bit store), writes it into slot d of
+//     every shard's row of the gathered totals (all_gather's output), and
+//     looks back: lane l waits for the flag of shard d-1-l (D <= 16, so one
+//     warp covers every shard before this one in one round trip), and the
+//     warp folds the aggregates up to the nearest inclusive prefix (shard
+//     0 publishes its total as one). The product is the shard's carry (the
+//     Montgomery one for shard 0); the block publishes its own inclusive
+//     prefix;
 //   - every word is multiplied once by its thread's prefix (the carry, the
 //     tiles before, the warps and lanes before) and written once, either
 //     inclusive or in the grand product's shifted form (word 0 of shard d
 //     its carry, word j the scan at j-1).
 // A shard longer than a tile is scanned twice: once for its total, once
-// with the carry. The ticket, a count of finished blocks and the D flags
-// live in a small buffer a (device, stream); the block that takes the last
-// ticket resets the ticket, and the last block to finish its look-back
-// clears the flags and the count, so the buffer is ready for the next
-// launch without a host-side reset. Bound: bytes (each word read and
-// written once, two products a word); at the prover's 8 x 8192 words it is
-// launch latency, as the all-gather alone was.
+// with the carry. The ticket and the D flags live in a small buffer a
+// (device, stream). The ticket counts launches (its epoch) above the
+// blocks of this launch; the block that takes the last ticket moves it to
+// the next epoch, and a flag carries the epoch that wrote it, so a reader
+// waits for this launch's flag and a flag left by an earlier launch never
+// needs clearing: the buffer is ready for the next launch with no reset
+// and no fence (a flag's value travels in its own word). Epochs compare
+// in 31 bits: a stale flag could pass only if no launch had written it
+// for a multiple of 2^31 launches. Bound:
+// bytes (each word read and written once, two products a word); at the
+// prover's 8 x 8192 words it is the latency of its dependent steps
+// (ticket, loads, scans, look-back, stores), as the all-gather alone was
+// launch latency: 1 x 1 word takes 80 % of 8 x 8192's time, and 1024 or
+// 256 threads a block time within 3 % of 512.
 //
 // K9's design. On one card the relayout and the exchange are one copy, so
 // the wrapper turns (shard shape, split axis, concat axis, D) into a host
@@ -196,15 +207,20 @@ bool load_ptrs(ShardPtrs& ptrs, const void* const* srcs, void* const* dsts,
 
 // ---- K8 on the prover's path: the sharded prefix product ----
 
-constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_ITEMS = 8;  // words a thread scans serially
-constexpr long long SCAN_TILE = (long long)SCAN_THREADS * SCAN_ITEMS;
+constexpr int SCAN_THREADS = 512;
+constexpr int SCAN_ITEMS = 16;  // words a thread scans serially
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
-static_assert(SCAN_WARPS == 32, "one warp scans the warp totals");
-// a flag word: status in the high half, the value (< p < 2^31) in the low
-constexpr unsigned long long FLAG_AGGREGATE = 1ull << 32;  // shard total
-constexpr unsigned long long FLAG_PREFIX = 2ull << 32;     // inclusive prefix
-// the state buffer: [0] ticket, [1] finished look-backs, [2, 2 + D) flags
+static_assert(SCAN_WARPS <= 32, "one warp scans the warp totals");
+static_assert(MAX_SHARDS <= 32, "one warp reads every predecessor's flag");
+// The state buffer: [0] the ticket, the launch's epoch above its low byte
+// and the blocks that took one in it; [1, 1 + D) the shards' flags. A flag
+// word: the value (< p < 2^31) in bits 0-30, its kind in bits 31-32, the
+// low 31 bits of the epoch that wrote it above.
+constexpr int TICKET_BITS = 8;  // > log2(MAX_SHARDS)
+constexpr unsigned long long FLAG_AGGREGATE = 1ull << 31;  // shard total
+constexpr unsigned long long FLAG_PREFIX = 2ull << 31;     // inclusive prefix
+constexpr int EPOCH_SHIFT = 33;
 
 struct ScanArgs {
   const long long* src[MAX_SHARDS];
@@ -218,36 +234,50 @@ struct ScanArgs {
   uint32_t one;  // the Montgomery one, R mod p
 };
 
-__device__ __forceinline__ unsigned long long load_acquire(
+// A flag carries its value in its own word, so a flag is published and
+// read with strong relaxed accesses at the device scope: no fence orders
+// other data with it.
+__device__ __forceinline__ unsigned long long load_relaxed(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
                : "=l"(v)
                : "l"(p)
                : "memory");
   return v;
 }
 
-__device__ __forceinline__ void store_release(unsigned long long* p,
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
                                               unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
 }
 
-// The inclusive scan of the tile at `base` (words past m count as the one):
-// v holds this thread's SCAN_ITEMS words scanned serially, excl the product
-// of the tile's words before them; returns the tile's product.
+// A tile word's place in shared memory: one pad word every 32, so that
+// both a thread's SCAN_ITEMS consecutive words and a warp's 32 consecutive
+// words fall in 32 different banks.
+__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+
+// The inclusive scan of the tile at `base` (words past m count as the one),
+// loaded coalesced through shared memory: v holds this thread's SCAN_ITEMS
+// words scanned serially, excl the product of the tile's words before
+// them; returns the tile's product.
 __device__ __forceinline__ uint32_t scan_tile(const long long* src,
                                               long long base, long long m,
                                               uint32_t (&v)[SCAN_ITEMS],
                                               uint32_t& excl, MontParams f,
-                                              uint32_t one,
+                                              uint32_t one, uint32_t* tile,
                                               uint32_t* warp_tot) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = k * SCAN_THREADS + threadIdx.x;
+    tile[padded(i)] = base + i < m ? (uint32_t)src[base + i] : one;
+  }
+  __syncthreads();
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k)
-    v[k] = i0 + k < m ? (uint32_t)src[i0 + k] : one;
+    v[k] = tile[padded(threadIdx.x * SCAN_ITEMS + k)];
 #pragma unroll
   for (int k = 1; k < SCAN_ITEMS; ++k) v[k] = mont_mul(v[k - 1], v[k], f);
   uint32_t x = v[SCAN_ITEMS - 1];
@@ -261,97 +291,123 @@ __device__ __forceinline__ uint32_t scan_tile(const long long* src,
   if (lane == 31) warp_tot[w] = x;
   __syncthreads();
   if (w == 0) {
-    uint32_t s = warp_tot[lane];
+    uint32_t s = lane < SCAN_WARPS ? warp_tot[lane] : one;
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
+    for (int off = 1; off < SCAN_WARPS; off <<= 1) {
       const uint32_t y = __shfl_up_sync(0xffffffffu, s, off);
       if (lane >= off) s = mont_mul(y, s, f);
     }
-    warp_tot[lane] = s;
+    if (lane < SCAN_WARPS) warp_tot[lane] = s;
   }
   __syncthreads();
   const uint32_t total = warp_tot[SCAN_WARPS - 1];
   excl = w ? mont_mul(warp_tot[w - 1], lane_excl, f) : lane_excl;
-  __syncthreads();  // warp_tot is reused by the next tile
+  __syncthreads();  // warp_tot and tile are reused
   return total;
 }
 
 // This thread's words of the tile at `base`, times `pre` (the product of
 // every word of the shard's sequence before them, carry included): the
-// inclusive scan, or shifted by one word.
+// inclusive scan, or shifted by one word; stored coalesced through shared
+// memory.
 __device__ __forceinline__ void store_tile(long long* dst, long long base,
                                            long long m,
                                            const uint32_t (&v)[SCAN_ITEMS],
                                            uint32_t pre, int shifted,
-                                           MontParams f) {
-  const long long i0 = base + (long long)threadIdx.x * SCAN_ITEMS;
+                                           MontParams f, uint32_t* tile) {
+  const int t0 = threadIdx.x * SCAN_ITEMS;
   if (shifted) {
-    if (i0 < m) dst[i0] = pre;
+    tile[padded(t0)] = pre;
 #pragma unroll
     for (int k = 1; k < SCAN_ITEMS; ++k)
-      if (i0 + k < m) dst[i0 + k] = mont_mul(pre, v[k - 1], f);
+      tile[padded(t0 + k)] = mont_mul(pre, v[k - 1], f);
   } else {
 #pragma unroll
     for (int k = 0; k < SCAN_ITEMS; ++k)
-      if (i0 + k < m) dst[i0 + k] = mont_mul(pre, v[k], f);
+      tile[padded(t0 + k)] = mont_mul(pre, v[k], f);
   }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = k * SCAN_THREADS + threadIdx.x;
+    if (base + i < m) dst[base + i] = tile[padded(i)];
+  }
+  __syncthreads();  // tile is reused
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS)
     prefix_scan_kernel(const __grid_constant__ ScanArgs A) {
+  __shared__ uint32_t tile[SCAN_TILE + SCAN_TILE / 32];
   __shared__ uint32_t warp_tot[SCAN_WARPS];
-  __shared__ int shard;
+  __shared__ unsigned long long ticket_sh;
   __shared__ uint32_t carry_sh;
   unsigned long long* ticket = A.state;
-  unsigned long long* done = A.state + 1;
-  unsigned long long* flags = A.state + 2;
+  unsigned long long* flags = A.state + 1;
   const MontParams f = A.f;
   if (threadIdx.x == 0) {
     const unsigned long long t = atomicAdd(ticket, 1ull);
-    if (t == (unsigned long long)(A.D - 1)) atomicExch(ticket, 0ull);
-    shard = (int)t;
+    // the last block of the launch moves the ticket to the next epoch
+    if ((int)(t & ((1u << TICKET_BITS) - 1)) == A.D - 1)
+      atomicAdd(ticket, (1ull << TICKET_BITS) - A.D);
+    ticket_sh = t;
   }
   __syncthreads();
-  const int d = shard;
+  const int d = (int)(ticket_sh & ((1u << TICKET_BITS) - 1));
+  const unsigned long long epoch = (ticket_sh >> TICKET_BITS)
+                                   << EPOCH_SHIFT;  // bits above 63 drop
   const long long* src = A.src[d];
   uint32_t v[SCAN_ITEMS], excl;
-  const uint32_t first = scan_tile(src, 0, A.m, v, excl, f, A.one, warp_tot);
+  const uint32_t first =
+      scan_tile(src, 0, A.m, v, excl, f, A.one, tile, warp_tot);
   uint32_t total = first;
   for (long long base = SCAN_TILE; base < A.m; base += SCAN_TILE) {
     uint32_t u[SCAN_ITEMS], e;
-    total = mont_mul(total, scan_tile(src, base, A.m, u, e, f, A.one,
+    total = mont_mul(total, scan_tile(src, base, A.m, u, e, f, A.one, tile,
                                       warp_tot), f);
   }
-  if (threadIdx.x == 0) {
-    store_release(flags + d, (d ? FLAG_AGGREGATE : FLAG_PREFIX) | total);
-    for (int e = 0; e < A.D; ++e) A.totals[(long long)e * A.D + d] = total;
-    uint32_t carry = A.one;
-    for (int j = d - 1; j >= 0; --j) {
-      unsigned long long fl;
+  if (threadIdx.x < 32) {
+    // warp 0: publish the total, gather it, look back over every shard
+    // before this one at once (lane l reads shard d - 1 - l's flag, and
+    // waits for this epoch's)
+    const int lane = threadIdx.x;
+    if (lane == 0)
+      store_relaxed(flags + d,
+                    epoch | (d ? FLAG_AGGREGATE : FLAG_PREFIX) | total);
+    for (int e = lane; e < A.D; e += 32)
+      A.totals[(long long)e * A.D + d] = total;
+    const int j = d - 1 - lane;
+    unsigned long long fl = 0;
+    if (j >= 0) {
       do {
-        fl = load_acquire(flags + j);
-      } while (!(fl >> 32));
-      carry = mont_mul((uint32_t)fl, carry, f);
-      if (fl >= FLAG_PREFIX) break;
+        fl = load_relaxed(flags + j);
+      } while ((fl & (~0ull << EPOCH_SHIFT)) != epoch ||
+               !(fl & (FLAG_AGGREGATE | FLAG_PREFIX)));
     }
-    if (d) store_release(flags + d, FLAG_PREFIX | mont_mul(carry, total, f));
-    carry_sh = carry;
-    // every read of the flags by this block is done: the last block to
-    // get here clears them for the next launch
-    __threadfence();
-    if (atomicAdd(done, 1ull) == (unsigned long long)(A.D - 1)) {
-      __threadfence();
-      for (int e = 0; e < A.D; ++e) flags[e] = 0;
-      atomicExch(done, 0ull);
+    // fold the aggregates up to the nearest inclusive prefix (shard 0's
+    // flag always is one, so a lane finds one whenever d > 0)
+    const unsigned prefixes =
+        __ballot_sync(0xffffffffu, (fl & FLAG_PREFIX) != 0);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : -1;
+    uint32_t carry = lane <= stop ? (uint32_t)fl & 0x7fffffffu : A.one;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      carry = mont_mul(carry, __shfl_xor_sync(0xffffffffu, carry, off), f);
+    if (lane == 0) {
+      if (d)
+        store_relaxed(flags + d,
+                      epoch | FLAG_PREFIX | mont_mul(carry, total, f));
+      carry_sh = carry;
     }
   }
   __syncthreads();
   long long* dst = A.dst[d];
   uint32_t run = carry_sh, tile_total = first;
   for (long long base = 0; base < A.m; base += SCAN_TILE) {
-    if (base) tile_total = scan_tile(src, base, A.m, v, excl, f, A.one,
-                                     warp_tot);
-    store_tile(dst, base, A.m, v, mont_mul(run, excl, f), A.shifted, f);
+    if (base)
+      tile_total =
+          scan_tile(src, base, A.m, v, excl, f, A.one, tile, warp_tot);
+    store_tile(dst, base, A.m, v, mont_mul(run, excl, f), A.shifted, f,
+               tile);
     run = mont_mul(run, tile_total, f);
   }
 }
@@ -413,8 +469,9 @@ extern "C" int all_to_all_launch(const void* const* srcs, void* const* dsts,
 }
 
 // srcs, dsts: the D shards' pointers, m int64 words each, in Montgomery
-// form in [0, p); totals: D x D int64 words; state: 2 + D uint64 words,
-// zero before the first launch on a stream and left zero by each launch;
+// form in [0, p); totals: D x D int64 words; state: 1 + MAX_SHARDS uint64
+// words, zero before the first launch on a stream and left by each launch
+// ready for the next one (no launches on other streams share it);
 // shifted: write the grand product's shifted form; one: R mod p.
 extern "C" int prefix_scan_launch(const void* const* srcs, void* const* dsts,
                                   void* totals, void* state, int D,

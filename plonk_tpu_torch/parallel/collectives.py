@@ -44,9 +44,10 @@ from ..utils import kernels
 
 MAX_SHARDS = 16                 # csrc/collectives.cu MAX_SHARDS
 A2A_BATCH = 4                   # csrc/collectives.cu kBatch
-SCAN_THREADS = 1024             # csrc/collectives.cu SCAN_THREADS
-SCAN_ITEMS = 8                  # csrc/collectives.cu SCAN_ITEMS
-SCAN_STATE_WORDS = 2 + MAX_SHARDS   # ticket, finished count, flags
+SCAN_THREADS = 512              # csrc/collectives.cu SCAN_THREADS
+SCAN_ITEMS = 16                 # csrc/collectives.cu SCAN_ITEMS
+SCAN_STATE_WORDS = 1 + MAX_SHARDS   # csrc/collectives.cu: ticket, flags
+SCAN_TICKET_BITS = 8            # csrc/collectives.cu TICKET_BITS
 
 
 def resolve_exchange(exchange, device: torch.device) -> str:
@@ -312,10 +313,11 @@ def all_to_all(shards, split_axis: int, concat_axis: int,
 
 @functools.lru_cache(maxsize=None)
 def _scan_state(device: torch.device, stream: int) -> torch.Tensor:
-    """prefix_scan's ticket, count of finished look-backs and shard flags
-    for launches on `stream` of `device`: zero between launches (the
-    kernel's blocks reset them). One a stream, so that launches that may
-    overlap never share one."""
+    """prefix_scan's ticket and shard flags for launches on `stream` of
+    `device`: zero at first, then left by each launch ready for the next
+    (the ticket moves to the next epoch, and each flag carries the epoch
+    that wrote it). One a stream, so that launches that may overlap never
+    share one."""
     return torch.zeros(SCAN_STATE_WORDS, dtype=torch.int64, device=device)
 
 

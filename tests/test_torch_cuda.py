@@ -764,7 +764,9 @@ def test_prefix_scan_kernel_on_two_streams(dev):
 def test_prefix_scan_kernel_leaves_its_state_ready(dev):
     """200 launches in a row on one stream, with no host step between
     them, at D alternating between 8, 3 and 16: every launch finds its
-    ticket and flags ready, which the kernel's blocks reset."""
+    ticket ready (the last block moves it to the next epoch) and waits
+    only for its own epoch's flags, never for those an earlier launch
+    left."""
     from plonk_tpu_torch.parallel import dist_scan as DS
     from plonk_tpu_torch.parallel import mesh as MS
     cases = []

@@ -82,7 +82,16 @@ def test_plain_scan_matches_jax(D, m):
 
 THREADS, ITEMS = CL.SCAN_THREADS, CL.SCAN_ITEMS
 TILE, WARPS = THREADS * ITEMS, THREADS // 32
-AGGREGATE, PREFIX = 1 << 32, 2 << 32
+AGGREGATE, PREFIX = 1 << 31, 2 << 31     # a flag's kind, bits 31-32
+TICKET_BITS, EPOCH_SHIFT = CL.SCAN_TICKET_BITS, 33
+T = torch.arange(THREADS)[:, None]
+K = torch.arange(ITEMS)[None, :]
+OWN = T * ITEMS + K                 # a thread's words in the tile
+STRIPED = K * THREADS + T           # the coalesced load and store
+
+
+def _padded(i: torch.Tensor) -> torch.Tensor:
+    return i + (i >> 5)
 
 
 def _shfl_up(x: torch.Tensor, off: int) -> torch.Tensor:
@@ -92,19 +101,26 @@ def _shfl_up(x: torch.Tensor, off: int) -> torch.Tensor:
     return torch.cat([w[:, :off], w[:, :-off]], dim=1).reshape(x.shape)
 
 
-def _warp_scan(x: torch.Tensor) -> torch.Tensor:
+def _warp_scan(x: torch.Tensor, width: int = 32) -> torch.Tensor:
+    """The shuffle scan of warps of 32 lanes over the offsets below
+    `width`."""
     lane = torch.arange(x.shape[0]) % 32
     for off in (1, 2, 4, 8, 16):
-        x = torch.where(lane >= off, F.mul(_shfl_up(x, off), x), x)
+        if off < width:
+            x = torch.where(lane >= off, F.mul(_shfl_up(x, off), x), x)
     return x
 
 
 def _scan_tile(src: torch.Tensor, base: int, m: int):
     """scan_tile: (v (THREADS, ITEMS), excl (THREADS,), the tile's
-    product)."""
-    idx = (base + torch.arange(THREADS)[:, None] * ITEMS
-           + torch.arange(ITEMS)[None, :])
-    v = torch.where(idx < m, src[idx.clamp(max=m - 1)], ONE)
+    product), the words loaded striped into the padded shared tile and
+    read back a thread's ITEMS at a time."""
+    tile = torch.full((TILE + TILE // 32,), -1, dtype=torch.int64)
+    g = base + STRIPED
+    tile[_padded(STRIPED)] = torch.where(g < m, src[g.clamp(max=m - 1)],
+                                         ONE)
+    v = tile[_padded(OWN)]
+    assert bool((v >= 0).all())
     cols = [v[:, 0]]
     for k in range(1, ITEMS):
         cols.append(F.mul(cols[-1], v[:, k]))
@@ -112,7 +128,10 @@ def _scan_tile(src: torch.Tensor, base: int, m: int):
     x = _warp_scan(v[:, -1])
     lane = torch.arange(THREADS) % 32
     lane_excl = torch.where(lane == 0, ONE, _shfl_up(x, 1))
-    warp_tot = _warp_scan(x.reshape(WARPS, 32)[:, 31])
+    # warp 0 scans the WARPS warp totals, its other lanes holding the one
+    warp_tot = _warp_scan(torch.cat([x.reshape(WARPS, 32)[:, 31],
+                                     torch.full((32 - WARPS,), ONE)]),
+                          WARPS)[:WARPS]
     w = torch.arange(THREADS) // 32
     warp_excl = warp_tot[(w - 1).clamp(min=0)]
     excl = torch.where(w > 0, F.mul(warp_excl, lane_excl), lane_excl)
@@ -120,56 +139,70 @@ def _scan_tile(src: torch.Tensor, base: int, m: int):
 
 
 def _store_tile(dst, hits, base, m, v, pre, shifted):
-    idx = (base + torch.arange(THREADS)[:, None] * ITEMS
-           + torch.arange(ITEMS)[None, :])
+    tile = torch.full((TILE + TILE // 32,), -1, dtype=torch.int64)
     pre = pre[:, None]
     if shifted:
-        vals = torch.cat([pre, F.mul(pre, v[:, :-1])], dim=1)
+        tile[_padded(OWN)] = torch.cat([pre, F.mul(pre, v[:, :-1])], dim=1)
     else:
-        vals = F.mul(pre, v)
-    live = idx < m
-    dst[idx[live]] = vals[live]
-    hits.index_add_(0, idx[live], torch.ones_like(idx[live]))
+        tile[_padded(OWN)] = F.mul(pre, v)
+    g = base + STRIPED
+    live = g < m
+    dst[g[live]] = tile[_padded(STRIPED)][live]
+    hits.index_add_(0, g[live], torch.ones_like(g[live]))
 
 
-def _block(srcs, dsts, hits, totals, state, m, shifted):
+def test_scan_tile_banks():
+    """The padded tile puts a warp's 32 words in 32 banks both ways: a
+    thread's ITEMS consecutive words, and the striped load and store."""
+    for idx in (OWN, STRIPED):
+        banks = _padded(idx).reshape(WARPS, 32, ITEMS) % 32
+        for k in range(ITEMS):
+            assert all(len(set(b[:, k].tolist())) == 32 for b in banks)
+
+
+def _block(srcs, dsts, hits, totals, state, m, shifted, rng):
     """One block of prefix_scan_kernel; yields after each access to the
-    state buffer (ticket, finished count, flags)."""
+    state buffer (the ticket, the flags). Warp 0's lanes read the
+    predecessors' flags in a random order, each when it holds this
+    epoch's value."""
     D = len(srcs)
-    d = state[0]
+    t = state[0]
     state[0] += 1
+    d, epoch = t % (1 << TICKET_BITS), t >> TICKET_BITS
     if d == D - 1:
-        state[0] = 0
+        state[0] += (1 << TICKET_BITS) - D
     yield
+    tag = (epoch % (1 << 31)) << EPOCH_SHIFT
     src = srcs[d]
     v, excl, first = _scan_tile(src, 0, m)
     total = first
     for base in range(TILE, m, TILE):
         total = int(F.mul(torch.tensor(total), _scan_tile(src, base, m)[2]))
-    flags = 2
-    state[flags + d] = (AGGREGATE if d else PREFIX) | total
+    flags = 1
+    state[flags + d] = tag | (AGGREGATE if d else PREFIX) | total
     yield
     for e in range(D):
         totals[e][d] = total
-    carry = ONE
-    for j in range(d - 1, -1, -1):
-        while not state[flags + j] >> 32:
+    fl = [0] * 32                    # lane l: shard d - 1 - l's flag
+    for lane in rng.permutation(d):
+        while (state[flags + d - 1 - lane] >> EPOCH_SHIFT != tag
+               >> EPOCH_SHIFT or not state[flags + d - 1 - lane]
+               & (AGGREGATE | PREFIX)):
             yield
-        fl = state[flags + j]
-        carry = int(F.mul(torch.tensor(fl & 0xFFFFFFFF), torch.tensor(carry)))
+        fl[lane] = state[flags + d - 1 - lane]
         yield
-        if fl >= PREFIX:
-            break
+    prefixes = [lane for lane in range(32) if fl[lane] & PREFIX]
+    stop = min(prefixes) if prefixes else -1
+    carry = torch.tensor([f % (1 << 31) if lane <= stop else ONE
+                          for lane, f in enumerate(fl)])
+    for off in (16, 8, 4, 2, 1):
+        carry = F.mul(carry, carry[torch.arange(32) ^ off])
+    assert len(set(carry.tolist())) == 1
+    carry = int(carry[0])
     if d:
-        state[flags + d] = PREFIX | int(F.mul(torch.tensor(carry),
-                                              torch.tensor(total)))
+        state[flags + d] = tag | PREFIX | int(F.mul(torch.tensor(carry),
+                                                    torch.tensor(total)))
         yield
-    state[1] += 1
-    if state[1] == D:
-        for e in range(D):
-            state[flags + e] = 0
-        state[1] = 0
-    yield
     run, tile_total = torch.tensor(carry), first
     for base in range(0, m, TILE):
         if base:
@@ -179,45 +212,50 @@ def _block(srcs, dsts, hits, totals, state, m, shifted):
 
 
 def _k8_model(shards, shifted: bool, state: list, seed: int):
-    """prefix_scan as the kernel computes it, its D blocks started in a
-    random order and interleaved at random; asserts every output word is
-    written exactly once. Returns (outputs, gathered totals)."""
+    """prefix_scan as the kernel computes it, its D blocks started and
+    interleaved at random; asserts every output word is written exactly
+    once. Returns (outputs, gathered totals)."""
     D, m = len(shards), shards[0].shape[0]
     rng = np.random.default_rng(seed)
     dsts = [torch.full((m,), -1, dtype=torch.int64) for _ in range(D)]
     hits = [torch.zeros(m, dtype=torch.int64) for _ in range(D)]
     totals = [[-1] * D for _ in range(D)]
-    blocks = [_block(shards, dsts, hits, totals, state, m, shifted)
-              for _ in range(D)]
-    started, live = [], list(rng.permutation(D))
-    while live or started:
+    running, pending = [], D
+    while pending or running:
         # a block not yet started may start (and take its ticket), or a
-        # started one makes its next step
-        k = int(rng.integers(0, len(started) + (1 if live else 0)))
-        if k == len(started):
-            started.append(blocks[live.pop()])
-            k = len(started) - 1
+        # running one makes its next step
+        k = int(rng.integers(0, len(running) + (1 if pending else 0)))
+        if k == len(running):
+            running.append(_block(shards, dsts, hits, totals, state, m,
+                                  shifted, rng))
+            pending -= 1
         try:
-            next(started[k])
+            next(running[k])
         except StopIteration:
-            started.pop(k)
+            running.pop(k)
     assert all(bool((h == 1).all()) for h in hits)
     return dsts, [torch.tensor(row) for row in totals]
+
+
+def _launches(state: list) -> int:
+    """The epoch the ticket holds, after asserting that no block of a
+    launch left a count behind."""
+    assert state[0] % (1 << TICKET_BITS) == 0
+    return state[0] >> TICKET_BITS
 
 
 @pytest.mark.parametrize("D,m", SHAPES + [(2, 2 * TILE + 5)])
 def test_scan_schedule_model_matches_plain_and_jax(D, m):
     """The model's scan and shifted form equal the plain path's and JAX's
     (lax.all_gather exchange), its gathered totals the plain all-gather's;
-    two launches on one state buffer, which each leaves zero. A shard
-    longer than a tile (8192 words) is scanned twice by its block."""
+    two launches on one state buffer. A shard longer than a tile (8192
+    words) is scanned twice by its block."""
     rng = np.random.default_rng(D + m)
     x = _words(rng, D, m)
     mesh = MS.make_1d_mesh("sp", D, device="cpu")
     state = [0] * CL.SCAN_STATE_WORDS
     for seed, shifted in ((D, False), (D + 1, True)):
         got, totals = _k8_model(_shards(x, D), shifted, state, seed)
-        assert state == [0] * CL.SCAN_STATE_WORDS
         want, want_totals = DS.dist_scan_plain(F, mesh, _shards(x, D),
                                                shifted)
         assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
@@ -227,6 +265,28 @@ def test_scan_schedule_model_matches_plain_and_jax(D, m):
         if m < TILE:
             np.testing.assert_array_equal(_joined(got),
                                           _jax(fn, x, D, "xla"))
+    assert _launches(state) == 2
+
+
+def test_scan_model_state_across_launches():
+    """One state buffer through launches of 8, 3, 16, 1 and 8 shards, as a
+    stream runs them with no reset between: each launch moves the ticket
+    to the next epoch and waits only for its own epoch's flags, so the
+    flags an earlier launch left (stale prefixes above D included) never
+    pass; each scan equals the plain version's."""
+    state = [0] * CL.SCAN_STATE_WORDS
+    rng = np.random.default_rng(5)
+    for k, D in enumerate((8, 3, 16, 1, 8)):
+        x = _words(rng, D, 40)
+        got, totals = _k8_model(_shards(x, D), k % 2 == 1, state, k)
+        want, want_totals = DS.dist_scan_plain(
+            F, MS.make_1d_mesh("sp", D, device="cpu"), _shards(x, D),
+            k % 2 == 1)
+        assert all(torch.equal(g, w) for g, w in zip(got + totals,
+                                                     want + want_totals,
+                                                     strict=True))
+        assert _launches(state) == k + 1
+        assert all(f >> EPOCH_SHIFT == k for f in state[1:1 + D])
 
 
 @pytest.mark.parametrize("D,m", [(1, 8), (2, 1), (8, 8), (8, 4096)])
