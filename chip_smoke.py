@@ -1150,11 +1150,13 @@ DIST_LAUNCHES = {"cuda": {"all_to_all": 15, "all_gather": 1,
 
 def dist_cases(n: int, m: int):
     """(kernel, case name, shard shape, split axis, concat axis) of every
-    exchange the sharded 2^16 proof makes on D_MESH shards: the transposes
-    of the m-point coset transforms (batches 5, 10 and none; the first is
-    the per-proof forward stack) and of the n-point interpolations
-    (batches 9, 3 and none), both ways, and the grand-product totals."""
-    cases = [("all_gather", "totals (1,)", (1,), None, None)]
+    all-to-all the sharded 2^16 proof makes on D_MESH shards: the
+    transposes of the m-point coset transforms (batches 5, 10 and none;
+    the first is the per-proof forward stack) and of the n-point
+    interpolations (batches 9, 3 and none), both ways. Its one other
+    exchange, the grand product's totals, runs inside K8's prefix scan
+    (scan_checks)."""
+    cases = []
     for size, batches in ((m, (5, 10, None)), (n, (9, 3, None))):
         r1, r2 = DN._split(size, D_MESH)
         for b in batches:
@@ -1171,6 +1173,7 @@ def dist_cases(n: int, m: int):
 EDGE_CASES = [  # (kernel, name, shards, shard shape, split, concat)
     ("all_to_all", "one shard (3, 7)", 1, (3, 7), 1, 0),
     ("all_to_all", "odd rows (3, 8, 5)", D_MESH, (3, 8, 5), 1, 2),
+    ("all_gather", "one word (1,)", D_MESH, (1,), None, None),
     ("all_gather", "one shard (7,)", 1, (7,), None, None),
     ("all_gather", "odd rows (3, 5)", D_MESH, (3, 5), None, None),
     ("all_gather", "(64, 512)", D_MESH, (64, 512), None, None),
