@@ -47,8 +47,8 @@
 //     32, free of bank conflicts both ways): 16 words a thread serially,
 //     then a warp scan over __shfl_up_sync, then a scan of the 16 warp
 //     totals in shared memory (Montgomery products, canonical);
-//   - warp 0 publishes the shard total in a flag word (status in the high
-//     half, value in the low: one 64-bit store), writes it into slot d of
+//   - warp 0 publishes the shard total in a flag word (value, kind and
+//     the launch's epoch: one 64-bit store), writes it into slot d of
 //     every shard's row of the gathered totals (all_gather's output), and
 //     looks back: lane l waits for the flag of shard d-1-l (D <= 16, so one
 //     warp covers every shard before this one in one round trip), and the
@@ -203,7 +203,6 @@ bool load_ptrs(ShardPtrs& ptrs, const void* const* srcs, void* const* dsts,
   }
   return true;
 }
-
 
 // ---- K8 on the prover's path: the sharded prefix product ----
 
