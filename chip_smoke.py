@@ -1240,7 +1240,7 @@ def scan_checks(dev, F, errs: dict, tested: set):
 
 def fresh_events(mode: str) -> dict:
     """The --dist-events reading of `mode` from a fresh process (whose
-    first torch.profiler session sees the library's launches)."""
+    first torch.profiler run records the library's launches)."""
     res = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--dist-events", mode],
         capture_output=True, text=True, timeout=600,

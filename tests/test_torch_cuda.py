@@ -812,8 +812,8 @@ print(json.dumps(names))
 def test_prefix_scan_is_one_device_kernel(dev):
     """dist_prefix_prod and dist_grand_product on a CUDA mesh are one
     device kernel each and nothing else (no PyTorch field launch, no copy
-    around it): torch.profiler in a fresh process, whose first profiler
-    session sees the library's launches."""
+    around it): torch.profiler in a fresh process, whose first profiling
+    run records the library's launches."""
     import json
     import os
     import subprocess
