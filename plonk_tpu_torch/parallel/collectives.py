@@ -44,10 +44,7 @@ from ..utils import kernels
 
 MAX_SHARDS = 16                 # csrc/collectives.cu MAX_SHARDS
 A2A_BATCH = 4                   # csrc/collectives.cu kBatch
-SCAN_THREADS = 512              # csrc/collectives.cu SCAN_THREADS
-SCAN_ITEMS = 16                 # csrc/collectives.cu SCAN_ITEMS
 SCAN_STATE_WORDS = 1 + MAX_SHARDS   # csrc/collectives.cu: ticket, flags
-SCAN_TICKET_BITS = 8            # csrc/collectives.cu TICKET_BITS
 
 
 def resolve_exchange(exchange, device: torch.device) -> str:

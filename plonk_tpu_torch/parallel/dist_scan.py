@@ -27,14 +27,13 @@ from .collectives import all_gather, prefix_scan, resolve_exchange
 from .mesh import Mesh, shard_vector, unshard_vector
 
 
-def dist_scan_plain(F, mesh: Mesh, shards, shifted: bool = False,
-                    exchange=None):
+def dist_scan_plain(F, mesh: Mesh, shards, shifted: bool = False):
     """dist_scan in PyTorch: the local scans, the all-gather of their
-    totals (`all_gather` with `exchange`), the carries folded in shard
-    order; with `shifted` the scan is joined, shifted right by one word
-    behind a leading one and split again."""
+    totals (plain copies), the carries folded in shard order; with
+    `shifted` the scan is joined, shifted right by one word behind a
+    leading one and split again."""
     local = [_prefix_prod(F, x) for x in shards]
-    totals = all_gather([loc[-1:] for loc in local], exchange)     # (D,)
+    totals = all_gather([loc[-1:] for loc in local], "plain")      # (D,)
     out = []
     for d, (loc, tot) in enumerate(zip(local, totals)):
         carry = F.ones((), loc.device)
@@ -59,7 +58,7 @@ def dist_scan(F, mesh: Mesh, shards, axis: str = "sp", exchange=None,
         raise ValueError(f"{len(shards)} shards for a mesh of {n_dev}")
     if resolve_exchange(exchange, shards[0].device) == "cuda":
         return prefix_scan(shards, F.p, F.n_prime, F.r_mod_p, shifted)
-    return dist_scan_plain(F, mesh, shards, shifted, exchange)
+    return dist_scan_plain(F, mesh, shards, shifted)
 
 
 def dist_prefix_prod(F, mesh: Mesh, shards, axis: str = "sp",

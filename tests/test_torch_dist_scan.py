@@ -7,6 +7,9 @@ prefix_scan_kernel: the ticket order, each block's tile scan, the published
 totals, the look-back, the gathered totals, the shifted form and the state
 left for the next launch) against the plain version and JAX. Exact
 equality; the port's shards all live on the CPU."""
+import re
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -80,10 +83,12 @@ def test_plain_scan_matches_jax(D, m):
 # random interleaving after a random start order; its tile scan with the
 # kernel's thread, warp and lane index maps.
 
-THREADS, ITEMS = CL.SCAN_THREADS, CL.SCAN_ITEMS
+# The geometry and the flag layout are csrc/collectives.cu's SCAN_THREADS,
+# SCAN_ITEMS, FLAG_AGGREGATE, FLAG_PREFIX, TICKET_BITS and EPOCH_SHIFT.
+THREADS, ITEMS = 512, 16
 TILE, WARPS = THREADS * ITEMS, THREADS // 32
 AGGREGATE, PREFIX = 1 << 31, 2 << 31     # a flag's kind, bits 31-32
-TICKET_BITS, EPOCH_SHIFT = CL.SCAN_TICKET_BITS, 33
+TICKET_BITS, EPOCH_SHIFT = 8, 33
 T = torch.arange(THREADS)[:, None]
 K = torch.arange(ITEMS)[None, :]
 OWN = T * ITEMS + K                 # a thread's words in the tile
@@ -149,6 +154,28 @@ def _store_tile(dst, hits, base, m, v, pre, shifted):
     live = g < m
     dst[g[live]] = tile[_padded(STRIPED)][live]
     hits.index_add_(0, g[live], torch.ones_like(g[live]))
+
+
+def _cu_constants() -> dict:
+    """The integer constexprs of csrc/collectives.cu, by name."""
+    src = (Path(CL.__file__).parent.parent / "csrc" / "collectives.cu"
+           ).read_text()
+    found = re.findall(r"constexpr [\w ]+? (\w+) = ([0-9]+)(?:ull)?"
+                       r"(?: << ([0-9]+))?;", src)
+    return {name: int(v) << int(shift or 0) for name, v, shift in found}
+
+
+def test_scan_model_constants_match_the_kernel_source():
+    """The model's geometry and flag layout, and the wrapper's state size
+    and shard limit, are the kernel's: a change to one copy fails here."""
+    cu = _cu_constants()
+    assert (cu["SCAN_THREADS"], cu["SCAN_ITEMS"]) == (THREADS, ITEMS)
+    assert (cu["FLAG_AGGREGATE"], cu["FLAG_PREFIX"]) == (AGGREGATE, PREFIX)
+    assert (cu["TICKET_BITS"], cu["EPOCH_SHIFT"]) == (TICKET_BITS,
+                                                      EPOCH_SHIFT)
+    assert cu["MAX_SHARDS"] == CL.MAX_SHARDS
+    assert CL.SCAN_STATE_WORDS == 1 + cu["MAX_SHARDS"]
+    assert cu["kBatch"] == CL.A2A_BATCH
 
 
 def test_scan_tile_banks():
