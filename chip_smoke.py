@@ -94,6 +94,24 @@ same context, with its eight shards all on the card:
      host time a call and its device events a call (fresh process), K9
      alone and as the whole all_to_all call, the generic all-gather.
 
+Then the toy "PLONK by hand" prover (models/plonk.py, F_17 scalars,
+F_101 coordinates, n = 4, the reference's shapes), which launches none of
+K1-K9:
+ 20. the canonical proof on the card under each commit mode (naive,
+     "table", Pippenger): the reference SRS and dialect give the golden
+     proof (nine commitments at infinity, tail 15/13/5/1/12/15/15); the
+     fixed SRS and the standard dialect prove, verify and reject a
+     tampered r_z; all diagnostics ok; the card's words equal the CPU
+     port's;
+ 21. the batched prover (parallel/batch.py) at B = 65 536 proofs in the
+     configuration of the JAX package's entry() (fixed SRS, reference
+     dialect, the canonical witness in every lane, per-lane challenges and
+     blinding in F_17 from a seed): no kernel launched, lane 0 golden and
+     equal to the single proof, the first 1 024 lanes equal the CPU
+     port's, diagnostics included, the sharded prover on 8 shards equal
+     to the batch; proofs/s at B = 1, 1 024 and 65 536 (synchronised,
+     host clock) and the peak memory of the 65 536 batch.
+
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
 product on 8 x 8192 words) or proof-cuda or proof-plain (a sharded 2^16
@@ -128,8 +146,12 @@ import numpy as np
 import torch
 
 try:
+    from plonk_tpu_torch.models import plonk as PL
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models import plonk_scaled as PS
+    from plonk_tpu_torch.models import presets as TP
+    from plonk_tpu_torch.models import verifier as TV
+    from plonk_tpu_torch.models.constraints import constraints_to_tensors
     from plonk_tpu_torch.models import synthetic as SY
     from plonk_tpu_torch.models.synthetic import (
         big_edge_rows, bn254_mul_circuit, edge_rows, from_words,
@@ -145,6 +167,7 @@ try:
     from plonk_tpu_torch.ops import row_stages as RS
     from plonk_tpu_torch.ops.bigfield import BigMontField
     from plonk_tpu_torch.ops.field import MontField
+    from plonk_tpu_torch.parallel import batch as TB
     from plonk_tpu_torch.parallel import collectives as CL
     from plonk_tpu_torch.parallel import dist_ntt as DN
     from plonk_tpu_torch.parallel import dist_prover as DP
@@ -223,6 +246,17 @@ BN_ANCHOR_POINTS = dict(
     w_z_omega_s=(
         0xc012db6d0618ba653b09afef7e01817b629df224ef38c12a8762e4bbaa85a4,
         0x211e9e5294d3b07a31257f566ddafbe05d9bdca44afd66be3d3a7910eceb924e))
+# the toy "PLONK by hand" proof of the reference run
+# (tests/golden/plonk_golden.json): nine commitments at infinity on the
+# reference SRS, and this tail for the canonical challenge and blinding
+TOY_TAIL = dict(a_z=15, b_z=13, c_z=5, s_sigma_1_z=1, s_sigma_2_z=12,
+                r_z=15, z_omega_z=15)
+TOY_MODES = {"naive": dict(), "table": dict(commit_mode="table"),
+             "pippenger": dict(use_pippenger=True)}
+TOY_BATCH = 1 << 16          # proofs in phase 21's batch
+TOY_CPU_LANES = 1024         # lanes held against the CPU port
+TOY_SEED = 20260101
+TOY_TIMED = {1: 20, 1024: 5, TOY_BATCH: 3}    # batch -> timed reps
 
 
 def bound_ms(n_bytes: float, n_imad: float):
@@ -1539,6 +1573,136 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
                           {"all_to_all": a2a_library})
 
 
+def lanes(x, sl):
+    """The lanes `sl` of a batched proof or diagnostics (tuples of tensors
+    or of points)."""
+    if isinstance(x, torch.Tensor):
+        return x[sl]
+    return type(x)(*(lanes(v, sl) for v in x))
+
+
+def diags_equal(d, e) -> bool:
+    return all(torch.equal(u.cpu(), v.cpu()) for u, v in zip(d, e))
+
+
+def toy_tail_ok(proof, lane=None) -> bool:
+    pick = (lambda t: t) if lane is None else (lambda t: t[lane])
+    return all(int(pick(getattr(proof, f))) == v for f, v in TOY_TAIL.items())
+
+
+def toy_lanes(B: int):
+    """Phase 21's inputs: the canonical witness in every lane, per-lane
+    challenges and blinding in F_17 from TOY_SEED, lane 0 canonical."""
+    rng = np.random.default_rng(TOY_SEED)
+    chs = rng.integers(0, 17, size=(B, 5))
+    rnds = rng.integers(0, 17, size=(B, 9))
+    chs[0], rnds[0] = TP.CANONICAL_CHALLENGE, TP.CANONICAL_RAND
+    asg = TP.canonical_assignments()
+    wires = [np.tile(w, (B, 1)) for w in (asg.a, asg.b, asg.c)]
+    return wires + [chs, rnds]
+
+
+def toy_phases(dev, card: str) -> None:
+    """Phases 20-21: the toy "PLONK by hand" prover on the card (F_17
+    scalars, F_101 coordinates, n = 4), then its batched prover at
+    TOY_BATCH proofs. The toy path launches none of K1-K9: its NTT is the
+    n = 4 reshape butterfly and its commitments are ladders, table
+    gathers or Pippenger buckets in PyTorch."""
+    phase("20 the toy canonical proof on the card: golden, both dialects, "
+          "three commit modes, verify, CPU equality")
+    cons, asg = TP.canonical_constraints(), TP.canonical_assignments()
+    ch, rnd = TP.CANONICAL_CHALLENGE, TP.CANONICAL_RAND
+    for mode, kw in TOY_MODES.items():
+        out = {}
+        for d in ("cpu", dev):
+            ref_ctx = TP.canonical_context(device=d, **kw)
+            fix_ctx = TP.canonical_context(srs_mode="fixed", device=d, **kw)
+            ref = PL.prove(ref_ctx, cons, asg, ch, rnd)
+            std = PL.prove(fix_ctx, cons, asg, ch, rnd, dialect="standard")
+            out[d] = (ref, std, fix_ctx)
+        (ref, std, _), (gref, gstd, gctx) = out["cpu"], out[dev]
+        check(proofs_equal(ref[0], gref[0]) and diags_equal(ref[1], gref[1])
+              and proofs_equal(std[0], gstd[0])
+              and diags_equal(std[1], gstd[1]),
+              f"toy {mode}: the card's proofs equal the CPU port's")
+        check(bool(gref[1].all_ok()) and bool(gstd[1].all_ok()),
+              f"toy {mode} diagnostics")
+        check(all(bool(getattr(gref[0], f).inf) for f in PL.POINT_FIELDS)
+              and toy_tail_ok(gref[0]),
+              f"toy {mode}: nine commitments at infinity and the golden "
+              "tail")
+        vk, vk_s = wall(lambda: TV.make_verification_key(gctx, cons))
+        ok, verify_s = wall(lambda: TV.verify(gctx, vk, gstd[0], ch))
+        bad = gstd[0]._replace(r_z=(gstd[0].r_z + 1) % 17)
+        rejected = not TV.verify(gctx, vk, bad, ch)
+        check(ok and rejected, f"toy {mode}: verify accepts, tampered r_z "
+              "rejected")
+        print(f"{mode}: reference proof golden (r_z "
+              f"{int(gref[0].r_z)}), standard proof on the fixed SRS "
+              f"verifies ({verify_s:.3f} s, key {vk_s:.3f} s), tampered "
+              f"r_z rejected, card == CPU")
+
+    phase(f"21 the batched toy prover at B = {TOY_BATCH}: golden lane 0, "
+          f"the first {TOY_CPU_LANES} lanes vs the CPU port, 8 shards")
+    sel, cp = constraints_to_tensors(cons)
+    ctx = TP.canonical_context(srs_mode="fixed", device=dev)
+    prover = TB.make_batched_prover(ctx, sel, cp)
+    args = toy_lanes(TOY_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    kernels.reset_counts()
+    (proofs, diags), first_s = wall(lambda: prover(*args))
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"first batch {first_s:.6f} s; launches of K1-K9 {launches}; "
+          f"peak memory {peak / 2 ** 30:.6f} GiB, "
+          f"{(peak - base_mem) / 2 ** 30:.6f} GiB above what was allocated "
+          "before the batch")
+    check(not launches, f"the toy path launches no kernel: {launches}")
+    single, single_d = PL.prove(ctx, cons, asg, ch, rnd)
+    check(toy_tail_ok(proofs, 0) and bool(single_d.all_ok())
+          and proofs_equal(lanes(proofs, 0), single)
+          and diags_equal(lanes(diags, 0), single_d),
+          "lane 0 has the golden tail and equals the single proof")
+    cpu_ctx = TP.canonical_context(srs_mode="fixed", device="cpu")
+    head = [a[:TOY_CPU_LANES] for a in args]
+    cpu = TB.make_batched_prover(cpu_ctx, sel, cp)(*head)
+    sl = slice(0, TOY_CPU_LANES)
+    check(proofs_equal(lanes(proofs, sl), cpu[0])
+          and diags_equal(lanes(diags, sl), cpu[1]),
+          f"the first {TOY_CPU_LANES} lanes equal the CPU port's")
+    mesh = MS.make_1d_mesh("dp", D_MESH, device=dev)
+    sharded, sharded_s = wall(lambda: TB.make_sharded_prover(
+        ctx, sel, cp, mesh)(*args))
+    check(proofs_equal(sharded[0], proofs) and diags_equal(sharded[1], diags),
+          "the sharded prover equals the batched prover")
+    ok = torch.stack(list(diags)).all(0)
+    failed = {f: int((~getattr(diags, f)).sum()) for f in diags._fields}
+    print(f"lane 0 golden; {TOY_CPU_LANES} lanes equal the CPU port's; "
+          f"{D_MESH} shards equal the batch ({sharded_s:.6f} s); "
+          f"{int(ok.sum())} of {TOY_BATCH} lanes have every diagnostic ok; "
+          f"lanes failing each (kept, as the reference prover's asserts "
+          f"would stop there): {failed}")
+    print(f"card: {card}")
+    for B, reps in TOY_TIMED.items():
+        sub = [a[:B] for a in args]
+        wall(lambda: prover(*sub))                     # warm-up
+        secs = [wall(lambda: prover(*sub))[1] for _ in range(reps)]
+        print(f"toy proofs_per_s B={B} {B * reps / sum(secs):.6f} "
+              f"({reps} synchronised batches, host clock; seconds a batch "
+              f"{' '.join(f'{x:.6f}' for x in secs)})")
+        if B in (1, TOY_BATCH):
+            n_ev, dev = device_ms(lambda: prover(*sub), reps=1)
+            batch_ms = sum(secs) / reps * 1e3
+            idle = "not measured" if dev is None else \
+                f"{1 - dev / batch_ms:.4f}"
+            dev_s = "no" if dev is None else f"{dev:.6f}"
+            print(f"toy B={B} under torch.profiler: {n_ev:.0f} device "
+                  f"events and {dev_s} ms of device time a batch; device "
+                  f"idle share against the mean batch above {idle}")
+
+
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
 # name)
 K1_ENTRY = "row_stages_kernel"
@@ -1952,6 +2116,7 @@ def main() -> None:
                               prover)
     dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                                prover, vk)
+    toy_phases(dev, card)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries

@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of the PLONK provers and verifiers: the scaled
-pairing curve and BN254.
+"""PyTorch + CUDA port of the PLONK provers and verifiers: the toy
+"PLONK by hand" protocol (with its batched prover), the scaled pairing
+curve and BN254.
 
 The JAX package `plonk_tpu` is the reference; every module here keeps the
 name and the function names of its counterpart there, and the tests in
@@ -7,6 +8,9 @@ name and the function names of its counterpart there, and the tests in
 
 Representation, held in **int64** tensors on every device (torch's CPU
 backend has no `uint32` add, shift or compare):
+- toy fields (F_17 scalars, F_101 coordinates): a field element is one
+  standard-form word, equal to the `uint32` word of
+  `plonk_tpu.ops.field.Field` (direct reduction);
 - scaled curve: a field element is one word in [0, p) with p < 2^31; its
   Montgomery word (R = 2^32) equals the `uint32` word of
   `plonk_tpu.ops.field.MontField`;
@@ -23,9 +27,11 @@ the modular matmul `ops/mxu_ntt.py`, the fixed-base commit
 `ops/commit.py`, and the 16-limb BN254 counterparts `ops/bigntt.py` and
 `ops/bigcommit.py`, and the all-gather and all-to-all of the sharded
 prover `parallel/collectives.py`); on a CPU tensor their plain
-PyTorch versions run. The entry points (`scaled_new`, `srs_create`,
-`bn254_setup`, `parallel.mesh.make_1d_mesh`) put their context on the
-CUDA card unless given `device="cpu"`.
+PyTorch versions run. The toy path (`models/plonk.py`,
+`models/verifier.py`, `parallel/batch.py`) launches none of them. The
+entry points (`canonical_context`, `plonk_new`, `scaled_new`,
+`srs_create`, `bn254_setup`, `parallel.mesh.make_1d_mesh`) put their
+context on the CUDA card unless given `device="cpu"`.
 
 The mesh-sharded scaled prover lives in `parallel/`: `mesh.py` (a
 single-controller mesh of D shards on one device), `collectives.py`,

@@ -1,4 +1,4 @@
-"""Radix-2 number-theoretic transform (NTT/INTT) over Montgomery fields.
+"""Radix-2 number-theoretic transform (NTT/INTT) over prime fields.
 
 Port of `plonk_tpu/ops/ntt.py`: iterative Cooley-Tukey DIT, with the
 twiddle tables computed on the host with Python ints and cached.
@@ -8,7 +8,8 @@ The log2(C) stages with butterfly distance < C act within rows and run as
 ONE pass through `row_stages` (K1: the CUDA kernel on a CUDA tensor, its
 plain version on a CPU tensor); the stages with distance >= C pair whole
 rows and stay in PyTorch. Transforms with n < 4096 use the plain reshape
-butterfly instead (the "simple" layout).
+butterfly instead (the "simple" layout), which is all a direct `Field`
+(the toy F_17, n = 4) takes: K1 needs Montgomery words.
 """
 from __future__ import annotations
 
@@ -149,3 +150,30 @@ def intt(F, x: torch.Tensor, w: int) -> torch.Tensor:
     n = x.shape[-1]
     y = ntt(F, x, pow(w, -1, F.p))
     return F.mul(y, F.const(pow(n, -1, F.p)))
+
+
+def interpolate(F, values: torch.Tensor, w: int) -> torch.Tensor:
+    """The reference's interpolate_at_h (src/plonk.h:162-195): coefficients
+    of the unique degree < n polynomial taking `values` on
+    H = {w^0 .. w^(n-1)}; equal to h_pows_inv @ values."""
+    return intt(F, values, w)
+
+
+def evaluate_on_domain(F, coeffs: torch.Tensor, w: int, n: int
+                       ) -> torch.Tensor:
+    """Evaluate a (padded) coefficient vector on the order-n domain of w."""
+    from .poly import pad_to
+    return ntt(F, pad_to(coeffs, n), w)
+
+
+def ntt_mul(F, a: torch.Tensor, b: torch.Tensor, root_fn=None
+            ) -> torch.Tensor:
+    """Polynomial product through the NTT, static length la + lb - 1. The
+    field needs 2-adicity >= log2 of the next power of two of that."""
+    from .poly import pad_to
+    L = a.shape[-1] + b.shape[-1] - 1
+    n = 1 << (L - 1).bit_length()
+    w = F.params.root_of_unity(n) if root_fn is None else root_fn(n)
+    fa = ntt(F, pad_to(a, n), w)
+    fb = ntt(F, pad_to(b, n), w)
+    return intt(F, F.mul(fa, fb), w)[..., :L]

@@ -4,8 +4,10 @@ The SRS and the fixed-base window table play the part that weights play
 in a model: made once, then fed to every proof. These helpers turn the
 JAX package's arrays (numpy, uint32 words and bool flags, including the
 `x/y/inf` arrays of a `fbtable_*.npz` cache file) into this package's
-int64 tensors, and proofs both ways. Nothing here imports JAX: any array
-that `np.asarray` accepts will do.
+int64 tensors, and SRSs, circuits (the toy `Constraints`), proofs and
+the toy prover's diagnostics both ways. Words keep their form: Montgomery
+words for the scaled curve and BN254, standard words for the toy fields.
+Nothing here imports JAX: any array that `np.asarray` accepts will do.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import numpy as np
 import torch
 
 from ..models import plonk_bn254 as PB
-from ..models.plonk import POINT_FIELDS, SCALAR_FIELDS, Proof
+from ..models.constraints import Constraints
+from ..models.plonk import POINT_FIELDS, SCALAR_FIELDS, Diagnostics, Proof
 from ..models.srs import SRS
 from ..ops.curve import G1, G2
 from ..ops.bigcurve import BigFixedBaseTable
@@ -31,12 +34,55 @@ def _flags(a, device) -> torch.Tensor:
 def srs_from_numpy(g1_x, g1_y, g1_inf, g2_1, g2_s, mode: str,
                    device) -> SRS:
     """SRS from G1 coordinate/flag arrays and the two G2 points as (x, y)
-    pairs, all Montgomery words."""
+    pairs, in the field's words."""
     return SRS(g1s=G1(_words(g1_x, device), _words(g1_y, device),
                       _flags(g1_inf, device)),
                g2_1=G2(_words(g2_1[0], device), _words(g2_1[1], device)),
                g2_s=G2(_words(g2_s[0], device), _words(g2_s[1], device)),
                mode=mode)
+
+
+def srs_to_numpy(srs) -> dict:
+    """The arguments of srs_from_numpy (uint32 words, bool flags) from any
+    SRS whose points have .x/.y(/.inf): this package's, or a JAX SRS."""
+    arr = lambda a: np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                               else a)
+    return dict(g1_x=arr(srs.g1s.x).astype(np.uint32),
+                g1_y=arr(srs.g1s.y).astype(np.uint32),
+                g1_inf=arr(srs.g1s.inf).astype(bool),
+                g2_1=(arr(srs.g2_1.x).astype(np.uint32),
+                      arr(srs.g2_1.y).astype(np.uint32)),
+                g2_s=(arr(srs.g2_s.x).astype(np.uint32),
+                      arr(srs.g2_s.y).astype(np.uint32)),
+                mode=srs.mode)
+
+
+_CONSTRAINT_FIELDS = ("q_l", "q_r", "q_o", "q_m", "q_c", "c_a", "c_b", "c_c")
+
+
+def constraints_from_numpy(cons) -> Constraints:
+    """This package's Constraints from any object with the selector and
+    copy arrays q_l .. q_c, c_a .. c_c (e.g. a JAX Constraints)."""
+    return Constraints(**{f: np.array(getattr(cons, f), dtype=np.int64)
+                          for f in _CONSTRAINT_FIELDS})
+
+
+def constraints_to_numpy(cons: Constraints) -> dict:
+    """The selector and copy arrays by field name (int64, the JAX
+    package's dtype), ready for either package's Constraints(**d)."""
+    return {f: np.array(getattr(cons, f), dtype=np.int64)
+            for f in _CONSTRAINT_FIELDS}
+
+
+def diagnostics_from_numpy(diags, device) -> Diagnostics:
+    """Diagnostics of bool tensors from any object with its field names."""
+    return Diagnostics(*(_flags(getattr(diags, f), device)
+                         for f in Diagnostics._fields))
+
+
+def diagnostics_to_numpy(diags: Diagnostics) -> Diagnostics:
+    """Diagnostics of numpy bool arrays."""
+    return Diagnostics(*(d.cpu().numpy().astype(bool) for d in diags))
 
 
 def table_from_numpy(x, y, inf, window_bits: int,

@@ -1,11 +1,13 @@
 """Field, curve and protocol parameters of the port.
 
-A copy of the parts of `plonk_tpu/utils/params.py` that the port uses, so
-that the port imports nothing of the JAX package: the dataclasses
-`FieldParams`, `CurveParams` and `PlonkParams`, the scaled pairing curve
-(`SCALED_FR`, `SCALED_FQ`, `SCALED_CURVE`, `scaled_plonk_params`) and the
-BN254 scalar field `BN254_FR`. The values are the same; the tests hold
-the two modules against each other.
+A copy of `plonk_tpu/utils/params.py`, so that the port imports nothing
+of the JAX package: the dataclasses `FieldParams`, `CurveParams` and
+`PlonkParams`, the toy "PLONK by hand" preset (`HF17`, `GF101`,
+`TOY_CURVE`, `TOY_PLONK`), `BABYBEAR`, the scaled pairing curve
+(`SCALED_FR`, `SCALED_FQ`, `SCALED_CURVE`, `scaled_plonk_params`), the
+production scalar fields `BN254_FR` and `BLS12_381_FR`, and
+`PRESET_FIELDS`. The values are the same; the tests hold the two modules
+against each other.
 """
 from __future__ import annotations
 
@@ -66,6 +68,31 @@ class PlonkParams:
         return self.curve.scalar
 
 
+# --- the toy "PLONK by hand" preset (bit-exact parity anchor) ---
+
+# F17: scalar field. 3 is a primitive root mod 17; 17-1 = 16 = 2^4.
+HF17 = FieldParams(p=17, name="F17", generator=3, two_adicity=4)
+# F101: base field. 2 is a primitive root mod 101; 101-1 = 100 = 4*25.
+GF101 = FieldParams(p=101, name="F101", generator=2, two_adicity=2)
+
+TOY_CURVE = CurveParams(
+    base=GF101,
+    scalar=HF17,
+    b=3,
+    g1_gen=(1, 2),
+    g2_gen=(36, 31),
+    d=101 - 2,  # u^2 = -2 (src/gt.h:24)
+)
+
+TOY_PLONK = PlonkParams(curve=TOY_CURVE, omega=4, k1=2, k2=3)
+
+# --- scaled NTT-friendly field presets ---
+
+# BabyBear: p = 15 * 2^27 + 1. Two-adicity 27 supports radix-2 NTT domains up
+# to 2^27 elements. 31 generates F_p^*.
+BABYBEAR = FieldParams(p=15 * (1 << 27) + 1, name="BabyBear", generator=31,
+                       two_adicity=27)
+
 # --- the scaled pairing curve (full PLONK at 2^16+ gates) ---
 #
 # Same construction as the toy curve, scaled up (derived with sympy, see
@@ -108,3 +135,11 @@ def scaled_plonk_params(n: int) -> PlonkParams:
 BN254_FR = FieldParams(
     p=21888242871839275222246405745257275088548364400416034343698204186575808495617,
     name="BN254-Fr", generator=5, two_adicity=28)
+
+BLS12_381_FR = FieldParams(
+    p=52435875175126190479447740508185965837690552500527637822603658699938581184513,
+    name="BLS12-381-Fr", generator=7, two_adicity=32)
+
+PRESET_FIELDS = {"F17": HF17, "F101": GF101, "BabyBear": BABYBEAR,
+                 "Fr-scaled": SCALED_FR, "Fq-scaled": SCALED_FQ,
+                 "BN254-Fr": BN254_FR, "BLS12-381-Fr": BLS12_381_FR}

@@ -843,3 +843,77 @@ def test_prefix_scan_refuses_bad_shards(dev):
     with pytest.raises(ValueError, match="contiguous"):
         CL.prefix_scan([x[::2], x[1::2]], *args)
     assert kernels.LAUNCHES["all_gather"] == before
+
+
+def _toy_lanes(B: int, seed: int):
+    from plonk_tpu_torch.models.presets import (CANONICAL_CHALLENGE,
+                                                CANONICAL_RAND,
+                                                canonical_assignments)
+    rng = np.random.default_rng(seed)
+    chs = rng.integers(0, 17, size=(B, 5))
+    rnds = rng.integers(0, 17, size=(B, 9))
+    chs[0], rnds[0] = CANONICAL_CHALLENGE, CANONICAL_RAND
+    asg = canonical_assignments()
+    return [np.tile(w, (B, 1)) for w in (asg.a, asg.b, asg.c)] + [chs, rnds]
+
+
+def _same_words(p, q) -> None:
+    """Word equality of two (batched) proofs or diagnostics."""
+    for u, v in zip(p, q):
+        if isinstance(u, tuple):
+            _same_words(u, v)
+        else:
+            assert torch.equal(u.cpu(), v.cpu())
+
+
+@pytest.mark.parametrize("mode", ["naive", "table", "pippenger"])
+def test_toy_proof_on_cuda_matches_cpu(dev, mode):
+    """The toy canonical proof on the card: the reference SRS and dialect
+    give the golden proof, the fixed SRS and the standard dialect verify;
+    both equal the CPU port's words, and no kernel of K1-K9 launches."""
+    from plonk_tpu_torch.models import plonk as PL
+    from plonk_tpu_torch.models import verifier as TV
+    from plonk_tpu_torch.models.presets import (
+        CANONICAL_CHALLENGE, CANONICAL_RAND, canonical_assignments,
+        canonical_constraints, canonical_context)
+    kw = {"naive": {}, "table": {"commit_mode": "table"},
+          "pippenger": {"use_pippenger": True}}[mode]
+    cons, asg = canonical_constraints(), canonical_assignments()
+    kernels.reset_counts()
+    for srs_mode, dialect in (("reference", "reference"),
+                              ("fixed", "standard")):
+        out = [PL.prove(canonical_context(srs_mode, device=d, **kw), cons,
+                        asg, CANONICAL_CHALLENGE, CANONICAL_RAND,
+                        dialect=dialect) for d in ("cpu", dev)]
+        _same_words(out[0], out[1])
+        proof, diags = out[1]
+        assert proof.r_z.device.type == "cuda" and bool(diags.all_ok())
+    ref = out[0]
+    assert int(proof.r_z) == int(ref[0].r_z)
+    ctx = canonical_context("fixed", device=dev, **kw)
+    vk = TV.make_verification_key(ctx, cons)
+    assert TV.verify(ctx, vk, proof, CANONICAL_CHALLENGE)
+    assert not TV.verify(ctx, vk, proof._replace(r_z=(proof.r_z + 1) % 17),
+                         CANONICAL_CHALLENGE)
+    assert not dict(kernels.LAUNCHES)
+
+
+def test_toy_batch_on_cuda_matches_cpu(dev):
+    """A batch of 1024 toy proofs (fixed SRS, reference dialect, seeded
+    challenges and blinding) on the card equals the CPU port's batch and
+    the card's 8-shard prover, diagnostics included."""
+    from plonk_tpu_torch.models.constraints import constraints_to_tensors
+    from plonk_tpu_torch.models.presets import (canonical_constraints,
+                                                canonical_context)
+    from plonk_tpu_torch.parallel import batch as TB
+    from plonk_tpu_torch.parallel.mesh import make_1d_mesh
+    sel, cp = constraints_to_tensors(canonical_constraints())
+    args = _toy_lanes(1024, 7)
+    out = [TB.make_batched_prover(canonical_context("fixed", device=d), sel,
+                                  cp)(*args) for d in ("cpu", dev)]
+    _same_words(out[0], out[1])
+    assert out[1][0].r_z.shape == (1024,) and int(out[1][0].r_z[0]) == 15
+    ctx = canonical_context("fixed", device=dev)
+    sharded = TB.make_sharded_prover(ctx, sel, cp,
+                                     make_1d_mesh("dp", 8, device=dev))(*args)
+    _same_words(sharded, out[1])

@@ -29,13 +29,16 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     first, names = out.stdout.splitlines()
     count, bad = first.split(" ", 1)
-    assert int(count) >= 32
+    assert int(count) >= 40
     assert bad.strip() == "[]"
-    # the modules of every kernel, of every prims and of the sharded
-    # prover are among those imported
+    # the modules of every kernel, of every prims, of the sharded prover
+    # and of the toy prover, its verifier and its batch are among those
+    # imported
     for mod in ("ops.row_stages", "ops.fused_ntt", "ops.mxu_ntt",
                 "ops.commit", "ops.bigntt", "ops.bigcommit",
                 "models.plonk_scaled", "models.plonk_bn254",
                 "parallel.mesh", "parallel.collectives", "parallel.dist_ntt",
-                "parallel.dist_scan", "parallel.dist_prover"):
+                "parallel.dist_scan", "parallel.dist_prover",
+                "ops.msm", "ops.matrix", "models.constraints",
+                "models.presets", "models.verifier", "parallel.batch"):
         assert f"plonk_tpu_torch.{mod}" in names.split(), mod
