@@ -70,9 +70,10 @@ phases 4-7:
      and of p - 1, and at nb = 1 on small shapes down to n1 = 1; K6's
      passes timed apart (first pass, grid barrier, second pass);
  15. make_prover (precompute_circuit) and a proof under fused_prims,
-     onepass_prims and mxu2_prims: launches counted for each, diagnostics,
-     the proof equal to the default prims' proof of phase 6;
- 16. proofs/s of the four prims in turns, each kernel against its plain
+     onepass_prims and mxu2_prims, then mxu_prims (plain products, no K7,
+     peak memory of each): launches counted for each, diagnostics, the
+     proof equal to the default prims' proof of phase 6;
+ 16. proofs/s of the five prims in turns, each kernel against its plain
      version.
 
 Then the mesh-sharded scaled prover at 2^16 gates (parallel/), on the
@@ -112,6 +113,29 @@ K1-K9:
      to the batch; proofs/s at B = 1, 1 024 and 65 536 (synchronised,
      host clock) and the peak memory of the 65 536 batch.
 
+Then the non-interactive scaled prover and the rest of plonk_scaled at
+2^16 gates, on the context of phases 4-7 (its window table cached on
+disk under build/plonk_tpu_cache, emptied at the start, so that phase 4
+builds it and phase 25 loads it):
+ 22. the BLAKE2b Fiat-Shamir prover (models/fiat_shamir.py): prove (K1
+     and K2 launches counted), diagnostics, challenges equal to the host
+     replay, the proof equal to make_prover's for those challenges,
+     verify, a tampered commitment and evaluation rejected;
+ 23. the Poseidon Fiat-Shamir prover (models/fs_poseidon.py): the same
+     checks; the card's tree_digest of random public inputs equal to the
+     CPU port's (2^16 of them) and to host_tree_digest (2^12); prove_many
+     at B = 4 equal to four single proofs;
+     torch.profiler's device events of one permutation and of one proof
+     of each prover;
+ 24. verify_scaled_many at B = 4 proofs of distinct blinding, then with
+     one lane tampered, each lane equal to verify_scaled of its proof;
+ 25. proof and SRS bytes (utils/serialization.py) round-trip on the card
+     and equal the CPU port's at n = 16; a second context loads the
+     cached window table, words equal; prove_scaled_checked gives phase
+     6's proof and raises on an out-of-range copy index before any
+     launch; then proofs/s of make_prover and both Fiat-Shamir provers
+     in turns, verify, batch-verify, cache-load and table-build times.
+
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
 product on 8 x 8192 words) or proof-cuda or proof-plain (a sharded 2^16
@@ -146,6 +170,8 @@ import numpy as np
 import torch
 
 try:
+    from plonk_tpu_torch.models import fiat_shamir as FS
+    from plonk_tpu_torch.models import fs_poseidon as FSP
     from plonk_tpu_torch.models import plonk as PL
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models import plonk_scaled as PS
@@ -164,6 +190,7 @@ try:
     from plonk_tpu_torch.ops import fused_ntt as FN
     from plonk_tpu_torch.ops import mxu_ntt as MX
     from plonk_tpu_torch.ops import ntt as N
+    from plonk_tpu_torch.ops import poseidon as PO
     from plonk_tpu_torch.ops import row_stages as RS
     from plonk_tpu_torch.ops.bigfield import BigMontField
     from plonk_tpu_torch.ops.field import MontField
@@ -174,6 +201,7 @@ try:
     from plonk_tpu_torch.parallel import dist_scan as DS
     from plonk_tpu_torch.parallel import mesh as MS
     from plonk_tpu_torch.utils import kernels
+    from plonk_tpu_torch.utils import serialization as SZ
     from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FQ, SCALED_FR
 except ModuleNotFoundError as exc:   # the script without the repository
     raise SystemExit(f"chip_smoke: {exc}; run it from the root of the "
@@ -1026,6 +1054,38 @@ def k5_checks(Fr, dev, w: int, m: int, errs: dict) -> dict:
     return dict(sorted(timed.items(), key=lambda kv: "other" in kv[0]))
 
 
+def mxu_prims_check(ctx, circuit, ref_proof):
+    """Phase 15's mxu_prims: make_prover and a proof with the coset
+    transforms' products in plain PyTorch; launches counted (no K7), peak
+    memory of each, the proof equal to `ref_proof`. Returns the prover."""
+    sel, cp, a, b, c = circuit
+    mems = []
+    counts = []
+    for step in ("make_prover", "proof"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        kernels.reset_counts()
+        if step == "make_prover":
+            prover, make_s = wall(lambda: PS.make_prover(
+                ctx, sel, cp, prims=PS.mxu_prims()))
+        else:
+            (proof, diags), first_s = wall(lambda: prover(a, b, c, CH, RND))
+        counts.append(dict(kernels.LAUNCHES))
+        mems.append((torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30)
+    print(f"mxu_prims: make_prover {make_s:.3f} s, launches {counts[0]}, "
+          f"peak {mems[0]:.6f} GiB above what was allocated before; first "
+          f"proof {first_s:.3f} s, launches {counts[1]}, peak "
+          f"{mems[1]:.6f} GiB above")
+    check(counts == [{"row_stages": 1},
+                     {"row_stages": 2, "commit_many": 1}],
+          "mxu precompute and proof launches (no K7)")
+    check(bool(diags.all_ok()), f"mxu 2^16 diagnostics {diags}")
+    check(proofs_equal(proof, ref_proof),
+          "mxu proof equals the default prims' proof")
+    return prover
+
+
 def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     """Phases 14-16: the fused, onepass and mxu2 prims at 2^16 gates on the
     scaled context `ctx`, against the default prims' `ref_proof` of the
@@ -1109,8 +1169,8 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
     for name, args in k6_args.items():
         print_split(name, onepass_split(*args))
 
-    phase("15 precompute_circuit and a 2^16 proof under the fused, onepass "
-          "and mxu2 prims")
+    phase("15 precompute_circuit and a 2^16 proof under the fused, onepass, "
+          "mxu2 and mxu prims")
     sel, cp, a, b, c = circuit
     provers = {"default": ref_prover}
     launches = {}
@@ -1133,10 +1193,11 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
               f"{name} proof equals the default prims' proof")
         launches[kname] = counts[kname]
         provers[name] = prover
+    provers["mxu"] = mxu_prims_check(ctx, circuit, ref_proof)
     print("each prims' 2^16 proof passes diags.all_ok() and equals the "
           "default prims' proof")
 
-    phase("16 proofs/s of the four prims in turns, kernel times")
+    phase("16 proofs/s of the five prims in turns, kernel times")
     total = collections.Counter()
     for rep in range(PROOF_REPS):
         rnd = [v + 50 + 9 * rep for v in RND]
@@ -1703,6 +1764,228 @@ def toy_phases(dev, card: str) -> None:
                   f"idle share against the mean batch above {idle}")
 
 
+FS_REPS = 3              # synchronised proofs of each prover, in turns
+MANY_B = 4               # lanes of phase 24's verify_scaled_many
+DIGEST_HOST_M = 1 << 12  # public inputs digested by the host oracle
+CACHE_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_cache")
+
+
+def fs_launches(launches: dict, nonce: int) -> bool:
+    """A Fiat–Shamir proof's kernel launches: K1 once in the prep stage,
+    once a grand-product attempt (nonce + 1 of them) and twice in the
+    quotient; K2 once a round (B = 3, 1, 3, 2)."""
+    return launches == {"row_stages": 4 + nonce, "commit_many": 4}
+
+
+def tampered(proof, Fr):
+    """The proof with a commitment and with an evaluation changed."""
+    return {"commitment": proof._replace(z_s=proof.z_s._replace(
+                x=proof.z_s.x + 1)),
+            "evaluation": proof._replace(a_z=(proof.a_z + 1) % Fr.p)}
+
+
+def fs_prover_checks(kind, prover, prove, verify, replay, ctx, circuit,
+                     ref_prover):
+    """Phases 22 and 23's common checks: prove (launches counted),
+    diagnostics, challenges equal to the host replay, the proof equal to
+    make_prover's for those challenges, verify accepts, a tampered
+    commitment and evaluation are rejected. Returns (FS proof, timings)."""
+    sel, cp, a, b, c = circuit
+    kernels.reset_counts()
+    (out, diags), first_s = wall(lambda: prove(a, b, c, RND))
+    launches = dict(kernels.LAUNCHES)
+    print(f"{kind}: first proof {first_s:.3f} s, nonce {out.nonce}, "
+          f"challenge {out.challenge.tolist()}, launches {launches}")
+    check(bool(diags.all_ok()), f"{kind} diagnostics {diags}")
+    check(fs_launches(launches, out.nonce), f"{kind} K1/K2 launches")
+    ch, replay_s = wall(lambda: replay(out))
+    check(np.array_equal(ch, out.challenge),
+          f"{kind} challenges equal the host replay's")
+    interactive, d = ref_prover(a, b, c, out.challenge, RND)
+    check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
+          f"{kind} proof equals make_prover's for its challenges")
+    ok, verify_s = wall(lambda: verify(ctx, prover.vk, out))
+    rejected = {name: not verify(ctx, prover.vk, out._replace(proof=bad))
+                for name, bad in tampered(out.proof, ctx.Fr).items()}
+    print(f"{kind}: host replay {replay_s:.3f} s equal; the proof equals "
+          f"make_prover's for those challenges; verify {ok} "
+          f"({verify_s:.3f} s); tampered rejected {rejected}")
+    check(ok and all(rejected.values()),
+          f"{kind} verify accepts and rejects tampering")
+    return out, dict(first_s=first_s, verify_s=verify_s, replay_s=replay_s)
+
+
+def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
+              vk) -> None:
+    """Phases 22-25 on the 2^16 context of phases 4-7: both Fiat–Shamir
+    provers, verify_scaled_many, proof and SRS bytes, the window table's
+    disk cache, the checked prover; then proofs/s in turns with
+    make_prover and the verify and cache times."""
+    sel, cp, a, b, c = circuit
+    Fr, Fq = ctx.Fr, ctx.Fq
+    n = ctx.n
+    times = {}
+
+    phase("22 the BLAKE2b Fiat–Shamir prover at 2^16 gates")
+    fs, times["blake2b_build_s"] = wall(
+        lambda: FS.ScaledFsProver(ctx, sel, cp))
+    replay = lambda out: FS._derive_from_proof(
+        b"tpu-plonk-fs-v2", ctx.params, n, list(fs.vk), out.proof,
+        out.nonce)
+    _, t = fs_prover_checks("blake2b", fs, fs.prove, FS.verify_scaled_fs,
+                            replay, ctx, circuit, ref_prover)
+    times.update({f"blake2b_{k}": v for k, v in t.items()})
+
+    phase("23 the Poseidon Fiat–Shamir prover at 2^16 gates")
+    pos = PO.make_params(Fr.p)
+    fsp, times["poseidon_build_s"] = wall(
+        lambda: FSP.PoseidonFsProver(ctx, sel, cp))
+    zero_digest = int(Fr.decode(PO.tree_digest(
+        Fr, pos, torch.zeros(n, dtype=torch.int64))))
+    replay = lambda out: FSP.derive_challenges_host(
+        ctx, list(fsp.vk), out.proof, out.nonce, pi_digest=zero_digest)
+    out, t = fs_prover_checks("poseidon", fsp, fsp.prove,
+                              FSP.verify_scaled_fs_poseidon, replay, ctx,
+                              circuit, ref_prover)
+    times.update({f"poseidon_{k}": v for k, v in t.items()})
+    # the card's digest of random public inputs: at 2^16 against the CPU
+    # port's, at DIGEST_HOST_M against the Python-int oracle (~0.5 ms a
+    # permutation on the host: 2^16 inputs would take ~35 s)
+    rng = np.random.default_rng(23)
+    for m in (n, DIGEST_HOST_M):
+        pi = torch.as_tensor(rng.integers(0, Fr.p, m))
+        got, dev_s = wall(lambda: int(Fr.decode(PO.tree_digest(
+            Fr, pos, pi.to(dev)))))
+        t = time.perf_counter()
+        want = (int(Fr.decode(PO.tree_digest(Fr, pos, pi))) if m == n
+                else PO.host_tree_digest(pos, pi.tolist()))
+        ref_s = time.perf_counter() - t
+        ref = "the CPU port's" if m == n else "host_tree_digest"
+        print(f"tree_digest of {m} random public inputs: card {dev_s:.3f} "
+              f"s, {ref} {ref_s:.3f} s, equal {got == want}")
+        check(got == want, f"the card's tree_digest equals {ref}")
+    rnds = np.stack([np.array(RND) + 9 * (i + 1) for i in range(MANY_B)])
+    many, many_s = wall(lambda: fsp.prove_many(
+        *(np.stack([w] * MANY_B) for w in (a, b, c)), rnds))
+    singles = [fsp.prove(a, b, c, r) for r in rnds]
+    check(all(bool(d.all_ok()) and bool(sd.all_ok())
+              and m.nonce == s.nonce
+              and np.array_equal(m.challenge, s.challenge)
+              and proofs_equal(m.proof, s.proof)
+              for (m, d), (s, sd) in zip(many, singles)),
+          f"prove_many at B = {MANY_B} equals {MANY_B} single proofs")
+    print(f"prove_many B={MANY_B} {many_s:.3f} s, equal to {MANY_B} "
+          f"single proofs (lane by lane)")
+    for name, run in (
+            ("permute of one (8,) state",
+             lambda rep: PO.permute(Fr, pos, Fr.ones((8,), dev))),
+            ("poseidon proof", lambda rep: fsp.prove(a, b, c, rnds[0])),
+            ("blake2b proof", lambda rep: fs.prove(a, b, c, rnds[0])),
+            ("make_prover proof",
+             lambda rep: ref_prover(a, b, c, CH, rnds[0]))):
+        n_dev, dev_us, _, top = profiled_proofs(run, 1)
+        print(f"torch.profiler, {name}: {n_dev:.0f} device events, "
+              f"{dev_us / 1e3:.3f} ms of device time; top "
+              f"{[(k[:40], round(us / 1e3, 3)) for k, us in top[:3]]}")
+
+    phase(f"24 verify_scaled_many at B = {MANY_B}")
+    proofs = [ref_prover(a, b, c, CH, r)[0] for r in rnds]
+    chs = np.array([CH] * MANY_B)
+    flags, times["verify_many_s"] = wall(
+        lambda: PS.verify_scaled_many(ctx, vk, PS.stack_proofs(proofs), chs))
+    proofs[2] = proofs[2]._replace(r_z=(proofs[2].r_z + 1) % Fr.p)
+    flags_bad, times["verify_many_tampered_s"] = wall(
+        lambda: PS.verify_scaled_many(ctx, vk, PS.stack_proofs(proofs), chs))
+    t = time.perf_counter()
+    single = [PS.verify_scaled(ctx, vk, p, CH) for p in proofs]
+    torch.cuda.synchronize()
+    times["verify_4_singles_s"] = time.perf_counter() - t
+    print(f"distinct blinding: {flags.tolist()} "
+          f"({times['verify_many_s']:.3f} s); lane 2 tampered: "
+          f"{flags_bad.tolist()} ({times['verify_many_tampered_s']:.3f} "
+          f"s); verify_scaled of each lane {single} "
+          f"({times['verify_4_singles_s']:.3f} s for {MANY_B})")
+    check(flags.tolist() == [True] * MANY_B, "every honest lane accepted")
+    check(flags_bad.tolist() == single == [True, True, False, True],
+          "only the tampered lane is rejected, as verify_scaled says")
+
+    phase("25 proof and SRS bytes, the window table's disk cache, the "
+          "checked prover")
+    small = []
+    for d in ("cpu", dev):
+        c16 = PS.scaled_new(N_SMALL, device=d)
+        circ16 = square_chain_circuit(Fr.p, N_SMALL)
+        p16, _ = PS.make_prover(c16, *circ16[:2])(*circ16[2:], CH, RND)
+        small.append((SZ.proof_to_bytes(p16, Fq.p, Fr.p),
+                      SZ.srs_to_bytes(c16.srs, Fq.p)))
+    check(small[0] == small[1], "n = 16 proof and SRS bytes: card == CPU")
+    data, ser_s = wall(lambda: SZ.proof_to_bytes(ref_proof, Fq.p, Fr.p))
+    back = SZ.proof_from_bytes(data, dev)
+    check(proofs_equal(back, ref_proof) and back.r_z.device == dev,
+          "the 2^16 proof round-trips on the card")
+    srs_data, srs_s = wall(lambda: SZ.srs_to_bytes(ctx.srs, Fq.p))
+    srs2, srs_load_s = wall(lambda: SZ.srs_from_bytes(srs_data, "fixed",
+                                                      dev))
+    check(all(torch.equal(x, y) for x, y in zip(
+        tuple(srs2.g1s) + tuple(srs2.g2_1) + tuple(srs2.g2_s),
+        tuple(ctx.srs.g1s) + tuple(ctx.srs.g2_1) + tuple(ctx.srs.g2_s))),
+        "the 2^16 SRS round-trips on the card")
+    print(f"proof {len(data)} bytes ({ser_s:.3f} s), SRS {len(srs_data)} "
+          f"bytes ({srs_s:.3f} s, load {srs_load_s:.3f} s): round trips "
+          f"equal; n = 16 bytes equal on card and CPU")
+    tbl = PS.fixed_base_table(ctx)
+    path = PS._fb_cache_path(ctx, PS.COMMIT_WINDOW_BITS)
+    check(os.path.exists(path), f"phase 4 wrote the cache file {path}")
+    ctx2 = PS.ScaledContext(params=ctx.params, srs=ctx.srs, n=n)
+    tbl2, times["table_cache_load_s"] = wall(
+        lambda: PS.fixed_base_table(ctx2))
+    _, times["table_build_s"] = wall(lambda: CM.build_commit_table(
+        Fq, ctx.srs.g1s, Fr.p.bit_length(), PS.COMMIT_WINDOW_BITS))
+    check(all(torch.equal(x, y) for x, y in zip(tbl2[:3], tbl[:3]))
+          and (tbl.packed is None if tbl2.packed is None
+               else torch.equal(tbl2.packed, tbl.packed)),
+          "a second context loads the cached table, words equal")
+    print(f"cache file {os.path.getsize(path)} bytes; a second context "
+          f"loads it in {times['table_cache_load_s']:.3f} s (build "
+          f"{times['table_build_s']:.3f} s)")
+    kernels.reset_counts()
+    (proof, diags), checked_s = wall(lambda: PS.prove_scaled_checked(
+        ctx, sel, cp, a, b, c, CH, RND))
+    check(bool(diags.all_ok()) and proofs_equal(proof, ref_proof),
+          "prove_scaled_checked gives phase 6's proof")
+    bad_cp = np.array(cp)
+    bad_cp[1, 7, 1] = n + 1
+    kernels.reset_counts()
+    try:
+        PS.prove_scaled_checked(ctx, sel, bad_cp, a, b, c, CH, RND)
+        raised = None
+    except ValueError as err:
+        raised = str(err)
+    torch.cuda.synchronize()
+    check(raised == "copy index out of range (1-based, <= n)"
+          and not kernels.LAUNCHES,
+          f"an out-of-range copy index raises before any launch: {raised}")
+    print(f"prove_scaled_checked {checked_s:.3f} s, phase 6's proof; an "
+          f"out-of-range index raised {raised!r} with no launch")
+
+    print(f"card: {card}")
+    total = collections.Counter()
+    provers = {"make_prover": lambda r: ref_prover(a, b, c, CH, r),
+               "blake2b": lambda r: fs.prove(a, b, c, r),
+               "poseidon": lambda r: fsp.prove(a, b, c, r)}
+    for rep in range(FS_REPS):
+        rnd = [v + 70 + 9 * rep for v in RND]
+        for name, prove in provers.items():
+            (_, d), sec = wall(lambda: prove(rnd))
+            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
+            total[name] += sec
+    for name in provers:
+        print(f"proofs_per_s {name} {FS_REPS / total[name]:.6f} "
+              f"({FS_REPS} synchronised proofs, in turns)")
+    for key, v in times.items():
+        print(f"{key} {v:.6f}")
+
+
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
 # name)
 K1_ENTRY = "row_stages_kernel"
@@ -2017,6 +2300,10 @@ def main() -> None:
     phase("1 device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
+    # the window tables' disk cache, in the checkout and empty, so that
+    # phase 4 builds its table and phase 25 loads it
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
+    os.environ["PLONK_TPU_CACHE"] = CACHE_DIR
     dev = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2117,6 +2404,7 @@ def main() -> None:
     dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                                prover, vk)
     toy_phases(dev, card)
+    fs_phases(dev, card, ctx, (sel, cp, a, b, c), proof, prover, vk)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries

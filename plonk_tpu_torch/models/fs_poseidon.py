@@ -1,0 +1,255 @@
+"""Non-interactive scaled prover with a Poseidon transcript on the device.
+
+Port of the scaled half of `plonk_tpu/models/fs_poseidon.py` (the BN254
+prover is not ported). With an algebraic sponge (ops/poseidon.py) the
+challenges are field arithmetic on the prover's device: the sponge state
+never leaves it, and only the retry test and the squeezes' rejection tests
+read a flag back. The verifier replays the transcript with the Python-int
+oracle on the host.
+
+Transcript layout (poseidon-v1; each bullet is one `absorb_elements` call,
+10*-padded on its own):
+
+    preamble  label (16-bit chunks), r/n/k1/k2/omega, the 8 vk points
+    per-try   [tree_digest(PI), nonce]
+    round 1   [a]_1 [b]_1 [c]_1 (point chunks)      -> beta, gamma
+    round 2   [z]_1                                 -> alpha
+    round 3   [t_lo] [t_mid] [t_hi]                 -> z  (z^n != 1)
+    round 4   the 7 evaluations                     -> v
+
+A point absorbs as the 16-bit halves of its x and y words and its
+infinity flag (each below r, so the encoding is injective); the public
+inputs enter as a Poseidon tree digest. An inadmissible beta/gamma
+(vanishing permutation denominator, src/plonk.h:506-510) makes the prover
+retry with the next public nonce, up to nonce MAX_NONCE: 33 attempts, as
+the JAX package's while loop makes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import poseidon as PO
+from .fiat_shamir import _host, _points
+from .plonk import SCALAR_FIELDS, Proof
+from . import plonk_scaled as PS
+
+LABEL = b"tpu-plonk-fs-poseidon-v1"
+MAX_NONCE = 32
+
+
+def _label_elements(label: bytes) -> list:
+    """bytes -> 16-bit-chunk field elements (length-prefixed)."""
+    out = [len(label)]
+    padded = label + b"\x00" * (len(label) % 2)
+    for i in range(0, len(padded), 2):
+        out.append(int.from_bytes(padded[i:i + 2], "little"))
+    return out
+
+
+def _int_chunks(v: int, n_chunks: int) -> list:
+    return [(int(v) >> (16 * k)) & 0xFFFF for k in range(n_chunks)]
+
+
+def _host_point_elements(pt) -> list:
+    """G1 point -> [x_lo, x_hi, y_lo, y_hi, inf] ints of its words."""
+    return (_int_chunks(int(_host(pt.x)), 2)
+            + _int_chunks(int(_host(pt.y)), 2)
+            + [int(bool(_host(pt.inf)))])
+
+
+def _preamble_elements(ctx, vk_points) -> list:
+    pp = ctx.params
+    r = pp.field.p
+    elems = _label_elements(LABEL)
+    elems += _int_chunks(r, 4) + [ctx.n, pp.k1, pp.k2, pp.omega % r]
+    for pt in vk_points:
+        elems += _host_point_elements(pt)
+    return elems
+
+
+def _device_point_elements(F, pts) -> list:
+    """Points (0-d tensors) -> Montgomery 0-d absorb list, chunked as
+    _host_point_elements."""
+    out = []
+    for pt in pts:
+        for c in (pt.x & 0xFFFF, pt.x >> 16, pt.y & 0xFFFF, pt.y >> 16,
+                  pt.inf.to(torch.int64)):
+            out.append(F.encode(c))
+    return out
+
+
+class PoseidonFsProof(NamedTuple):
+    proof: object           # models.plonk.Proof (scaled points + evals)
+    nonce: int
+    challenge: np.ndarray   # [alpha beta gamma z v] standard form
+
+
+class PoseidonFsProver:
+    """Non-interactive prover for a fixed scaled circuit with the sponge on
+    the context's device. The verifying key, window table, circuit tables,
+    post-preamble sponge state and the digest of all-zero public inputs
+    are made once.
+
+        fs = PoseidonFsProver(ctx, selectors, copies)
+        out, diags = fs.prove(a_w, b_w, c_w, rand9)
+        assert verify_scaled_fs_poseidon(ctx, fs.vk, out)
+    """
+
+    def __init__(self, ctx, selectors, copies, prims=None,
+                 capacity: int = 4):
+        self.ctx = ctx
+        self.capacity = capacity
+        Fr = ctx.Fr
+        dev = ctx.device
+        self.pos = PO.make_params(ctx.params.field.p)
+        self.vk = PS.make_vk_scaled(ctx, selectors, copies)
+        self._vk_points = list(self.vk)
+        # the preamble is proof-independent: absorbed once on the host, its
+        # state encoded once
+        hs = PO.HostSponge(self.pos, capacity)
+        hs.absorb_elements(_preamble_elements(ctx, self._vk_points))
+        self._state0 = Fr.array(np.asarray(hs.state, dtype=np.int64), dev)
+        self._zero_pi_digest = PO.tree_digest(
+            Fr, self.pos, Fr.zeros((ctx.n,), dev))
+        base = prims if prims is not None else PS._auto_prims(ctx)
+        self._pre = PS.precompute_circuit(ctx, selectors, copies, base)
+        self._prims = base._replace(
+            commit_many=PS.table_commit(ctx, PS.fixed_base_table(ctx)))
+
+    def _absorb(self, s, elems):
+        return PO.absorb_elements(self.ctx.Fr, self.pos, s, elems,
+                                  self.capacity)
+
+    def _squeeze(self, s, pow_n_not_one=None):
+        return PO.squeeze(self.ctx.Fr, self.pos, s,
+                          pow_n_not_one=pow_n_not_one)
+
+    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """Returns (PoseidonFsProof, ScaledDiagnostics); RuntimeError when
+        no nonce up to MAX_NONCE gives an admissible beta/gamma."""
+        ctx, prims = self.ctx, self._prims
+        Fr = ctx.Fr
+        commit = lambda polys: prims.commit_many(ctx, polys)
+        st = PS._stage_prep(ctx, a_w, b_w, c_w, rand9, prims, self._pre,
+                            public_inputs)
+        pt1 = _points(commit([st["a_x"], st["b_x"], st["c_x"]]))
+        c1_elems = _device_point_elements(Fr, pt1)
+        pid = (self._zero_pi_digest if public_inputs is None else
+               PO.tree_digest(Fr, self.pos,
+                              PS._as_words(public_inputs, ctx.device)))
+
+        for nonce in range(MAX_NONCE + 1):
+            s = self._absorb(self._state0, [pid, nonce])
+            s = self._absorb(s, c1_elems)
+            beta_std, s = self._squeeze(s)
+            gamma_std, s = self._squeeze(s)
+            beta, gamma = Fr.encode(beta_std), Fr.encode(gamma_std)
+            z_x, den_ok = PS._stage_grand_product(ctx, st, beta, gamma,
+                                                  prims)
+            if bool(den_ok):
+                break
+        else:
+            raise RuntimeError(
+                "no admissible beta/gamma in %d retries" % MAX_NONCE)
+
+        (z_pt,) = _points(commit([z_x]))
+        s = self._absorb(s, _device_point_elements(Fr, [z_pt]))
+        alpha_std, s = self._squeeze(s)
+        alpha = Fr.encode(alpha_std)
+        q3 = PS._stage_quotient(ctx, st, z_x, alpha, beta, gamma, prims)
+        pt3 = _points(commit([q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"]]))
+        s = self._absorb(s, _device_point_elements(Fr, pt3))
+        z_std, s = self._squeeze(s, pow_n_not_one=ctx.n)
+        zc = Fr.encode(z_std)
+
+        # the evaluations do not depend on v: evaluate with v = 1, absorb,
+        # squeeze the real v, then open
+        one = torch.full((), Fr.const(1), dtype=torch.int64,
+                         device=ctx.device)
+        q5 = PS._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
+                                one)
+        s = self._absorb(s, [q5[k] for k in SCALAR_FIELDS])
+        v_std, s = self._squeeze(s)
+        q5 = PS._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
+                                Fr.encode(v_std))
+        pt4 = _points(commit([q5["w_z_x_quo"], q5["w_z_omega_x"]]))
+        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std])
+
+        proof = Proof(
+            a_s=pt1[0], b_s=pt1[1], c_s=pt1[2], z_s=z_pt,
+            t_lo_s=pt3[0], t_mid_s=pt3[1], t_hi_s=pt3[2],
+            w_z_s=pt4[0], w_z_omega_s=pt4[1],
+            **{k: Fr.decode(q5[k]) for k in SCALAR_FIELDS})
+        diags = PS.ScaledDiagnostics(
+            satisfied=st["satisfied"], t_tail_zero=q3["t_tail_zero"],
+            w_z_rem_zero=q5["rem1"] == 0, w_zw_rem_zero=q5["rem2"] == 0)
+        return (PoseidonFsProof(proof=proof, nonce=nonce,
+                                challenge=_host(ch).astype(np.uint32)),
+                diags)
+
+    def prove_many(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """B proofs: the inputs carry a leading batch axis; returns a list
+        of (PoseidonFsProof, diags), lane i equal to prove() of lane i.
+        The stages take one proof (batched scaled proving is ROADMAP queue
+        1 item 10), so the lanes are proved one after another, where the
+        JAX package runs them as one vmapped call."""
+        B = len(a_w)
+        return [self.prove(a_w[i], b_w[i], c_w[i], rand9[i],
+                           None if public_inputs is None
+                           else public_inputs[i])
+                for i in range(B)]
+
+
+def derive_challenges_host(ctx, vk_points, proof, nonce: int,
+                           public_inputs=None, capacity: int = 4,
+                           pi_digest: int | None = None) -> np.ndarray:
+    """Verifier-side transcript replay with the Python-int Poseidon.
+    The public-input digest is `pi_digest` when given (standard form),
+    else host_tree_digest of the public inputs (zeros when None). Returns
+    [alpha beta gamma z v] in standard form."""
+    pos = PO.make_params(ctx.params.field.p)
+    n = ctx.n
+    hs = PO.HostSponge(pos, capacity)
+    hs.absorb_elements(_preamble_elements(ctx, vk_points))
+    if pi_digest is None:
+        pi = ([0] * n if public_inputs is None
+              else [int(v) for v in _host(public_inputs)])
+        pi_digest = PO.host_tree_digest(pos, pi)
+    hs.absorb_elements([pi_digest, int(nonce)])
+    hs.absorb_elements(
+        _host_point_elements(proof.a_s) + _host_point_elements(proof.b_s)
+        + _host_point_elements(proof.c_s))
+    beta = hs.squeeze()
+    gamma = hs.squeeze()
+    hs.absorb_elements(_host_point_elements(proof.z_s))
+    alpha = hs.squeeze()
+    hs.absorb_elements(
+        _host_point_elements(proof.t_lo_s)
+        + _host_point_elements(proof.t_mid_s)
+        + _host_point_elements(proof.t_hi_s))
+    z = hs.squeeze(pow_n_not_one=n)
+    hs.absorb_elements([int(_host(getattr(proof, k))) for k in SCALAR_FIELDS])
+    v = hs.squeeze()
+    return np.array([alpha, beta, gamma, z, v], dtype=np.uint32)
+
+
+def verify_scaled_fs_poseidon(ctx, vk, fs_proof: PoseidonFsProof,
+                              public_inputs=None) -> bool:
+    """Replay the Poseidon transcript on the host and run the two-pairing
+    check; a tampered commitment or evaluation shifts the derived
+    challenges and breaks the pairing identity. The public-input digest
+    comes from `tree_digest` on the context's device (the words of
+    host_tree_digest; on the host it would be about 20 s at 2^16 inputs);
+    the rest of the replay runs on the host."""
+    Fr = ctx.Fr
+    pos = PO.make_params(ctx.params.field.p)
+    pi = (Fr.zeros((ctx.n,), ctx.device) if public_inputs is None
+          else PS._as_words(public_inputs, ctx.device))
+    pid = int(Fr.decode(PO.tree_digest(Fr, pos, pi)))
+    ch = derive_challenges_host(ctx, list(vk), fs_proof.proof,
+                                fs_proof.nonce, pi_digest=pid)
+    return PS.verify_scaled(ctx, vk, fs_proof.proof, ch,
+                            public_inputs=public_inputs)

@@ -17,7 +17,10 @@ The device of the context's SRS is where a proof runs.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import tempfile
+import zipfile
 from typing import NamedTuple
 
 import numpy as np
@@ -27,10 +30,12 @@ from ..ops import fused_ntt as FN
 from ..ops import mxu_ntt as MX
 from ..ops import ntt as N
 from ..ops import poly as P
-from ..ops.commit import build_commit_table, msm_fixed_base_many_kernel
+from ..ops.commit import (build_commit_table, msm_fixed_base_many_kernel,
+                          with_packed)
 from ..ops.curve import (G1, GT, _sel, g1_add, g1_generator, g1_mul, g1_neg,
                          gt_equal, gt_inv, gt_mul)
 from ..ops.field import MontField
+from ..ops.fixed_base import FixedBaseTable
 from ..ops.pairing import final_exponentiation, miller_loop
 from ..utils.kernels import resolve_device
 from ..utils.params import PlonkParams, scaled_plonk_params
@@ -170,15 +175,78 @@ def _sigma_values(ctx: ScaledContext, copies) -> torch.Tensor:
 
 def fixed_base_table(ctx: ScaledContext):
     """The SRS window table for fixed-base commitments (window bits 4,
-    window axis padded to a power of two), built once per context and
-    cached on the context object."""
+    window axis padded to a power of two), cached on the context object
+    and on disk (`_fb_cache_path`): a context whose SRS has a cache file
+    loads it instead of building the table."""
     tbl = getattr(ctx, "_fb_table", None)
     if tbl is None:
-        g1s = ctx.srs.g1s
-        tbl = build_commit_table(ctx.Fq, g1s, ctx.params.field.p.bit_length(),
-                                 window_bits=COMMIT_WINDOW_BITS)
+        wb = COMMIT_WINDOW_BITS
+        tbl = _fb_disk_load(ctx, wb)
+        if tbl is None:
+            tbl = build_commit_table(ctx.Fq, ctx.srs.g1s,
+                                     ctx.params.field.p.bit_length(),
+                                     window_bits=wb)
+            _fb_disk_save(ctx, wb, tbl)
         object.__setattr__(ctx, "_fb_table", tbl)
     return tbl
+
+
+def _fb_cache_path(ctx: ScaledContext, wb: int) -> str:
+    """The table's cache file, under $PLONK_TPU_CACHE (default
+    ~/.cache/plonk_tpu). The key is the JAX package's for its Pallas
+    layout (`_fb_cache_path(ctx, pts, wb, pallas=True)`): BLAKE2b of the
+    SRS's uint32 x and y words and bool infinity flags, then of the two
+    moduli, the window bits and "pal"; so each package finds the other's
+    files."""
+    g1s = ctx.srs.g1s
+    h = hashlib.blake2b(digest_size=16)
+    h.update(g1s.x.cpu().numpy().astype(np.uint32).tobytes())
+    h.update(g1s.y.cpu().numpy().astype(np.uint32).tobytes())
+    h.update(g1s.inf.cpu().numpy().astype(bool).tobytes())
+    h.update(str((ctx.params.field.p, ctx.params.curve.base.p, wb,
+                  "pal")).encode())
+    root = os.environ.get("PLONK_TPU_CACHE",
+                          os.path.expanduser("~/.cache/plonk_tpu"))
+    return os.path.join(root, f"fbtable_{h.hexdigest()}.npz")
+
+
+def _fb_disk_load(ctx: ScaledContext, wb: int) -> FixedBaseTable | None:
+    """The cached table on the context's device (with K2's packed copy on
+    a CUDA device), or None when there is no readable cache file."""
+    path = _fb_cache_path(ctx, wb)
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path) as z:
+            x, y, inf = z["x"], z["y"], z["inf"]
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+        return None
+    dev = ctx.device
+    return with_packed(FixedBaseTable(
+        x=torch.as_tensor(x.astype(np.int64), device=dev),
+        y=torch.as_tensor(y.astype(np.int64), device=dev),
+        inf=torch.as_tensor(inf.astype(bool), device=dev), window_bits=wb))
+
+
+def _fb_disk_save(ctx: ScaledContext, wb: int, tbl: FixedBaseTable) -> None:
+    """Write the table's x, y (uint32) and inf (bool), the JAX package's
+    npz fields; the packed copy is never cached. Best effort: a write
+    that fails leaves no file, and the file appears whole (renamed into
+    place) or not at all."""
+    path = _fb_cache_path(ctx, wb)
+    tmp = None
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                                   suffix=".npz.tmp")
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, x=tbl.x.cpu().numpy().astype(np.uint32),
+                     y=tbl.y.cpu().numpy().astype(np.uint32),
+                     inf=tbl.inf.cpu().numpy().astype(bool))
+        os.replace(tmp, path)
+    except OSError:
+        if tmp is not None and os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def table_commit(ctx: ScaledContext, table):
@@ -282,12 +350,15 @@ def onepass_prims() -> ProverPrims:
 
 
 def mxu_prims() -> ProverPrims:
-    """The JAX package's plain-XLA matmul transform runs no TPU kernel and
-    is not ported (ROADMAP queue 1 item 5); mxu2_prims computes the same
-    proof through K7."""
-    raise NotImplementedError(
-        "mxu_prims is not ported yet (ROADMAP queue 1 item 5); use "
-        "mxu2_prims")
+    """The 4n coset transforms as four-step matmul transforms in the
+    transposed (mxu_perm) layout with each modular product in plain
+    PyTorch (the float64 limb products of `_mont_mat_transform`): the JAX
+    package's plain-XLA matmul prims, which run no TPU kernel, so these
+    launch no K7. At the 2^18 coset the products of precompute's 10-row
+    stack are (4, 5120, 512) x (512, 2048) float64, a 336 MB product and
+    its 336 MB int64 copy; a proof's 5-row stack half that. mxu2_prims
+    computes the same proof through K7."""
+    return mxu2_prims()._replace(ntt8=MX.mxu_ntt, intt8=MX.mxu_intt)
 
 
 def mxu2_prims() -> ProverPrims:
@@ -639,6 +710,39 @@ def make_prover(ctx: ScaledContext, selectors, copies,
     return fn
 
 
+def prove_scaled_checked(ctx: ScaledContext, selectors, copies, a_w, b_w,
+                         c_w, challenge, rand9, public_inputs=None
+                         ) -> tuple[Proof, ScaledDiagnostics]:
+    """The prover with every reference abort as a raised ValueError, with
+    the JAX package's messages (its `checkify` lane): the copy tags and
+    1-based indices are checked before anything is gathered or launched
+    (XLA clamps an index out of range; torch raises on the CPU, and on a
+    CUDA device fires an assert that poisons the context), then the four
+    diagnostics (src/plonk.h:231, :506-510, :610, :617) after the proof.
+    Returns (Proof, ScaledDiagnostics) otherwise."""
+    n = ctx.n
+    cps = _as_words(copies, ctx.device)
+    if not bool(((cps[..., 0] >= 0) & (cps[..., 0] < 3)).all()):
+        raise ValueError("copy tag out of range (must be 0..2)")
+    if not bool(((cps[..., 1] >= 1) & (cps[..., 1] <= n)).all()):
+        raise ValueError("copy index out of range (1-based, <= n)")
+    proof, diags = prove_scaled(ctx, selectors, cps, a_w, b_w, c_w,
+                                challenge, rand9,
+                                public_inputs=public_inputs)
+    for ok, what in (
+            (diags.satisfied, "witness does not satisfy the constraints "
+                              "(src/plonk.h:231)"),
+            (diags.t_tail_zero,
+             "quotient division not exact (src/plonk.h:506-510)"),
+            (diags.w_z_rem_zero,
+             "W_z opening remainder nonzero (src/plonk.h:610)"),
+            (diags.w_zw_rem_zero,
+             "W_zw opening remainder nonzero (src/plonk.h:617)")):
+        if not bool(ok):
+            raise ValueError(what)
+    return proof, diags
+
+
 # ---------------- scaled verifier ----------------
 
 class ScaledVK(NamedTuple):
@@ -677,7 +781,9 @@ def verify_scaled(ctx: ScaledContext, vk: ScaledVK, proof: Proof,
 def _verify_points(ctx: ScaledContext, vk: ScaledVK, proof: Proof,
                    challenge, public_inputs=None):
     """The scalar/G1 algebra of verification: returns the two KZG check
-    pairs ((W_i, R_i), accept iff e(W_i, [s]_2) == e(R_i, [1]_2))."""
+    pairs ((W_i, R_i), accept iff e(W_i, [s]_2) == e(R_i, [1]_2)). Takes
+    leading batch dimensions: challenge (..., 5), proof fields of shape
+    (...), public inputs (..., n); the points come out with shape (...)."""
     Fr, Fq = ctx.Fr, ctx.Fq
     pp = ctx.params
     curve = pp.curve
@@ -688,7 +794,7 @@ def _verify_points(ctx: ScaledContext, vk: ScaledVK, proof: Proof,
 
     ch_std = _as_words(challenge, dev)
     ch = Fr.encode(ch_std)
-    alpha, beta, gamma, z, v = (ch[i] for i in range(5))
+    alpha, beta, gamma, z, v = (ch[..., i] for i in range(5))
     k1c, k2c = Fr.const(pp.k1), Fr.const(pp.k2)
     g = g1_generator(curve, Fq, dev)
     enc = Fr.encode
@@ -714,53 +820,62 @@ def _verify_points(ctx: ScaledContext, vk: ScaledVK, proof: Proof,
         # PI(z) = (z^n - 1)/n * sum_i pi_i * w^i / (z - w^i)
         pi_v = Fr.encode(_as_words(public_inputs, dev))
         h_mont = Fr.array(_pow_table(r, ctx.omega(), n), dev)
-        terms = Fr.mul(Fr.mul(pi_v, h_mont), Fr.inv(Fr.sub(z, h_mont)))
+        terms = Fr.mul(Fr.mul(pi_v, h_mont),
+                       Fr.inv(Fr.sub(z[..., None], h_mont)))
         pi_z = Fr.mul(Fr.mul(z_h_z, Fr.const(pow(n, -1, r))),
                       _tree_sum(Fr, terms))
         t_z_num = Fr.add(t_z_num, pi_z)
     t_z = Fr.mul(t_z_num, Fr.inv(z_h_z))
 
-    mulp = lambda pt, s_mont: g1_mul(Fq, pt, dec(s_mont), nbits=nbits)
     azg = Fr.add(Fr.add(a_z, Fr.mul(beta, z)), gamma)
     bzg = Fr.add(Fr.add(b_z, Fr.mul(Fr.mul(beta, k1c), z)), gamma)
     czg = Fr.add(Fr.add(c_z, Fr.mul(Fr.mul(beta, k2c), z)), gamma)
     z_coef = Fr.add(Fr.mul(Fr.mul(Fr.mul(azg, bzg), czg), alpha),
                     Fr.mul(alpha_sq, l_1_z))
     s3_coef = Fr.mul(Fr.mul(Fr.mul(as1z, bs2z), alpha), Fr.mul(beta, zw_z))
-    d_cm = mulp(vk.q_m_s, Fr.mul(a_z, b_z))
-    d_cm = g1_add(Fq, d_cm, mulp(vk.q_l_s, a_z))
-    d_cm = g1_add(Fq, d_cm, mulp(vk.q_r_s, b_z))
-    d_cm = g1_add(Fq, d_cm, mulp(vk.q_o_s, c_z))
-    d_cm = g1_add(Fq, d_cm, vk.q_c_s)
-    d_cm = g1_add(Fq, d_cm, mulp(proof.z_s, z_coef))
-    d_cm = g1_add(Fq, d_cm, g1_neg(Fq, mulp(vk.s3_s, s3_coef)))
-
     vp = [Fr.pow_static(v, k) for k in range(7)]
-    f_cm = proof.t_lo_s
-    f_cm = g1_add(Fq, f_cm, mulp(proof.t_mid_s, Fr.pow_static(z, n + 2)))
-    f_cm = g1_add(Fq, f_cm, mulp(proof.t_hi_s, Fr.pow_static(z, 2 * n + 4)))
-    f_cm = g1_add(Fq, f_cm, mulp(d_cm, vp[1]))
-    f_cm = g1_add(Fq, f_cm, mulp(proof.a_s, vp[2]))
-    f_cm = g1_add(Fq, f_cm, mulp(proof.b_s, vp[3]))
-    f_cm = g1_add(Fq, f_cm, mulp(proof.c_s, vp[4]))
-    f_cm = g1_add(Fq, f_cm, mulp(vk.s1_s, vp[5]))
-    f_cm = g1_add(Fq, f_cm, mulp(vk.s2_s, vp[6]))
-
     e_scalar = t_z
     for coef, val in ((vp[1], r_z), (vp[2], a_z), (vp[3], b_z),
                       (vp[4], c_z), (vp[5], s1_z), (vp[6], s2_z)):
         e_scalar = Fr.add(e_scalar, Fr.mul(coef, val))
-    e_neg = g1_neg(Fq, mulp(g, e_scalar))
-
-    def rhs(w_cm, point_std, combined, eval_neg):
-        return g1_add(Fq, g1_mul(Fq, w_cm, point_std, nbits=nbits),
-                      g1_add(Fq, combined, eval_neg))
-
-    r1 = rhs(proof.w_z_s, ch_std[3], f_cm, e_neg)
     zw_std = dec(Fr.mul(z, Fr.const(ctx.omega())))
-    e2_neg = g1_neg(Fq, mulp(g, zw_z))
-    r2 = rhs(proof.w_z_omega_s, zw_std, proof.z_s, e2_neg)
+
+    # every scalar multiplication but [v] D in one batched ladder
+    (qm, ql, qr, qo, zs, s3, tmid, thi, a_s, b_s, c_s, s1, s2, ge, gzw, wz,
+     wzw) = _mul_many(Fq, [
+         (vk.q_m_s, dec(Fr.mul(a_z, b_z))), (vk.q_l_s, dec(a_z)),
+         (vk.q_r_s, dec(b_z)), (vk.q_o_s, dec(c_z)),
+         (proof.z_s, dec(z_coef)), (vk.s3_s, dec(s3_coef)),
+         (proof.t_mid_s, dec(Fr.pow_static(z, n + 2))),
+         (proof.t_hi_s, dec(Fr.pow_static(z, 2 * n + 4))),
+         (proof.a_s, dec(vp[2])), (proof.b_s, dec(vp[3])),
+         (proof.c_s, dec(vp[4])), (vk.s1_s, dec(vp[5])),
+         (vk.s2_s, dec(vp[6])), (g, dec(e_scalar)), (g, dec(zw_z)),
+         (proof.w_z_s, ch_std[..., 3]), (proof.w_z_omega_s, zw_std)], nbits)
+    d_cm = qm
+    for term in (ql, qr, qo, vk.q_c_s, zs, g1_neg(Fq, s3)):
+        d_cm = g1_add(Fq, d_cm, term)
+    (d_v,) = _mul_many(Fq, [(d_cm, dec(vp[1]))], nbits)
+    f_cm = proof.t_lo_s
+    for term in (tmid, thi, d_v, a_s, b_s, c_s, s1, s2):
+        f_cm = g1_add(Fq, f_cm, term)
+    r1 = g1_add(Fq, wz, g1_add(Fq, f_cm, g1_neg(Fq, ge)))
+    r2 = g1_add(Fq, wzw, g1_add(Fq, proof.z_s, g1_neg(Fq, gzw)))
     return proof.w_z_s, r1, proof.w_z_omega_s, r2
+
+
+def _mul_many(Fq, pairs, nbits: int) -> list:
+    """[(point, standard-form scalar)] -> their products, as one
+    double-and-add ladder over a trailing axis of the pairs (each pair
+    broadcast to the batch shape of them all)."""
+    shape = torch.broadcast_shapes(*(t.shape for pt, sc in pairs
+                                     for t in (pt.x, sc)))
+    pts = G1(*(torch.stack([pt[k].expand(shape) for pt, _ in pairs], dim=-1)
+               for k in range(3)))
+    scalars = torch.stack([sc.expand(shape) for _, sc in pairs], dim=-1)
+    out = g1_mul(Fq, pts, scalars, nbits=nbits)
+    return [G1(out.x[..., j], out.y[..., j], out.inf[..., j])
+            for j in range(len(pairs))]
 
 
 def _stack_g1(pts) -> G1:
@@ -788,4 +903,25 @@ def _verify_scaled_flags(ctx: ScaledContext, vk: ScaledVK, proof: Proof,
                                     public_inputs)
     oks = _pairing_ratio_checks(ctx, _stack_g1([w1, w2]),
                                 _stack_g1([r1, r2]))
-    return oks[0], oks[1]
+    return oks[..., 0], oks[..., 1]
+
+
+def stack_proofs(proofs) -> Proof:
+    """Proofs stacked along a new leading batch axis (verify_scaled_many's
+    input)."""
+    npts = len(G1._fields)
+    return Proof(*(
+        G1(*(torch.stack([f[k] for f in fields]) for k in range(npts)))
+        if isinstance(fields[0], G1) else torch.stack(fields)
+        for fields in zip(*proofs)))
+
+
+def verify_scaled_many(ctx: ScaledContext, vk: ScaledVK, proofs: Proof,
+                       challenges, public_inputs=None) -> torch.Tensor:
+    """Batched verification: every field of `proofs` has a leading batch
+    axis B, `challenges` is (B, 5) and `public_inputs` None or (B, n).
+    The scalar/G1 algebra runs once over the batch, and all 2B pairing
+    checks ride one batched Miller loop and one final exponentiation.
+    Returns a (B,) bool tensor, lane i equal to verify_scaled of proof i."""
+    return torch.logical_and(*_verify_scaled_flags(ctx, vk, proofs,
+                                                   challenges, public_inputs))

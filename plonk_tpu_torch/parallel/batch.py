@@ -42,8 +42,10 @@ def _cat(parts):
 def make_sharded_prover(ctx: PlonkContext, selectors, copies, mesh: Mesh,
                         axis: str = "dp"):
     """The batched prover with the batch split over the mesh `axis`: shard
-    d proves rows [d*B/D, (d+1)*B/D) on mesh.devices[d]; the outputs are
-    joined in shard order and equal the batched prover's."""
+    d proves its slice of `torch.tensor_split(batch, D)` (any B; slices
+    differ by at most one row, an empty one is skipped) on
+    mesh.devices[d], one slice after another; the outputs are joined in
+    shard order and equal the batched prover's."""
     if mesh.axis != axis:
         raise ValueError(f"mesh axis {mesh.axis!r} is not {axis!r}")
     if any(d != ctx.device for d in mesh.devices):
@@ -55,11 +57,9 @@ def make_sharded_prover(ctx: PlonkContext, selectors, copies, mesh: Mesh,
     def run(a_w, b_w, c_w, challenges, rands):
         args = [_words(x, ctx.device) for x in (a_w, b_w, c_w, challenges,
                                                 rands)]
-        B = args[0].shape[0]
-        if B % D:
-            raise ValueError(f"batch {B} does not split into {D} shards")
-        shards = [torch.chunk(x, D, dim=0) for x in args]
-        outs = [batched(*(s[d] for s in shards)) for d in range(D)]
+        shards = [torch.tensor_split(x, D, dim=0) for x in args]
+        outs = [batched(*(s[d] for s in shards)) for d in range(D)
+                if shards[0][d].shape[0]]
         proofs, diags = zip(*outs)
         return _cat(list(proofs)), _cat(list(diags))
 

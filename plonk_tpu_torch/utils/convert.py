@@ -4,8 +4,9 @@ The SRS and the fixed-base window table play the part that weights play
 in a model: made once, then fed to every proof. These helpers turn the
 JAX package's arrays (numpy, uint32 words and bool flags, including the
 `x/y/inf` arrays of a `fbtable_*.npz` cache file) into this package's
-int64 tensors, and SRSs, circuits (the toy `Constraints`), proofs and
-the toy prover's diagnostics both ways. Words keep their form: Montgomery
+int64 tensors, and SRSs, circuits (the toy `Constraints`), proofs (the
+Fiat–Shamir ones with their nonce and challenge) and the toy prover's
+diagnostics both ways. Words keep their form: Montgomery
 words for the scaled curve and BN254, standard words for the toy fields.
 Nothing here imports JAX: any array that `np.asarray` accepts will do.
 """
@@ -16,6 +17,8 @@ import torch
 
 from ..models import plonk_bn254 as PB
 from ..models.constraints import Constraints
+from ..models.fiat_shamir import FsProof
+from ..models.fs_poseidon import PoseidonFsProof
 from ..models.plonk import POINT_FIELDS, SCALAR_FIELDS, Diagnostics, Proof
 from ..models.srs import SRS
 from ..ops.curve import G1, G2
@@ -119,6 +122,30 @@ def proof_to_numpy(proof: Proof) -> Proof:
     for name in SCALAR_FIELDS:
         fields[name] = getattr(proof, name).cpu().numpy().astype(np.uint32)
     return Proof(**fields)
+
+
+def _fs_fields(fs, proof) -> dict:
+    return dict(proof=proof, nonce=int(fs.nonce),
+                challenge=np.asarray(fs.challenge).astype(np.uint32))
+
+
+def fs_proof_from_numpy(fs, device) -> FsProof:
+    """FsProof of tensors from any object with proof/nonce/challenge (a
+    JAX FsProof of a scaled proof); nonce and challenge kept."""
+    return FsProof(**_fs_fields(fs, proof_from_numpy(fs.proof, device)))
+
+
+def poseidon_fs_proof_from_numpy(fs, device) -> PoseidonFsProof:
+    """PoseidonFsProof of tensors from a JAX PoseidonFsProof (or any object
+    with its fields); nonce and challenge kept."""
+    return PoseidonFsProof(**_fs_fields(fs, proof_from_numpy(fs.proof,
+                                                             device)))
+
+
+def fs_proof_to_numpy(fs):
+    """An FsProof or PoseidonFsProof with its proof as numpy arrays in the
+    JAX package's dtypes (proof_to_numpy), of the same type."""
+    return type(fs)(**_fs_fields(fs, proof_to_numpy(fs.proof)))
 
 
 # ---- BN254 ----

@@ -142,11 +142,18 @@ def test_b256_equals_jax_single_and_sharded(setup):
 
 
 def test_sharded_prover_checks_its_mesh(setup):
+    """Any batch splits, as JAX's sharding constraint allows: B = 3 on 2
+    shards, B = 6 on 4 (slices of 2, 2, 1, 1) and B = 3 on 4 (an empty
+    slice) equal the batched prover lane for lane; the mesh's axis and
+    devices are checked."""
     ctx, sel, cp, wires, chs, rnds, _ = setup
-    args = [x[:3] for x in (*wires, chs, rnds)]
-    with pytest.raises(ValueError, match="does not split"):
-        B.make_sharded_prover(ctx, sel, cp,
-                              MS.make_1d_mesh("dp", 2, device="cpu"))(*args)
+    for nb, D in ((3, 2), (6, 4), (3, 4)):
+        args = [x[4:4 + nb] for x in (*wires, chs, rnds)]
+        proofs, diags = B.make_batched_prover(ctx, sel, cp)(*args)
+        sharded = B.make_sharded_prover(
+            ctx, sel, cp, MS.make_1d_mesh("dp", D, device="cpu"))(*args)
+        assert sharded[0].r_z.shape == (nb,)
+        assert_lanes_equal(*sharded, proofs, diags, slice(0, nb))
     with pytest.raises(ValueError, match="axis"):
         B.make_sharded_prover(ctx, sel, cp,
                               MS.make_1d_mesh("sp", 2, device="cpu"))

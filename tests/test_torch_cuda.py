@@ -12,12 +12,15 @@ import pytest
 import torch
 
 from plonk_tpu_torch.utils.params import SCALED_CURVE, SCALED_FQ, SCALED_FR
+from plonk_tpu_torch.models import fiat_shamir as FS
+from plonk_tpu_torch.models import fs_poseidon as FSP
 from plonk_tpu_torch.models import plonk_scaled as PS
 from plonk_tpu_torch.models.plonk import POINT_FIELDS, SCALAR_FIELDS
 from plonk_tpu_torch.models.synthetic import edge_rows, square_chain_circuit
 from plonk_tpu_torch.ops import commit as CM
 from plonk_tpu_torch.ops import curve as C
 from plonk_tpu_torch.ops import ntt as N
+from plonk_tpu_torch.ops import poseidon as PO
 from plonk_tpu_torch.ops.field import MontField
 from plonk_tpu_torch.ops.row_stages import row_stages, row_stages_plain
 from plonk_tpu_torch.utils import kernels
@@ -197,6 +200,57 @@ def test_proof_on_cuda_matches_cpu(dev):
         assert int(getattr(proofs[0], name)) == int(getattr(proofs[1],
                                                             name)), name
     assert int(proofs[1].r_z) == 91913729
+
+
+# ---- Fiat–Shamir: the Poseidon sponge and both FS provers on the card ----
+
+def test_poseidon_on_cuda_matches_cpu(dev):
+    """permute, a squeeze with rejections (z^n = 1 for n = 2^22) and
+    tree_digest give the CPU port's words."""
+    pos = PO.make_params(SCALED_FR.p)
+    rng = np.random.default_rng(5)
+    std = rng.integers(0, SCALED_FR.p, size=(3, 256, 8))
+    got = PO.permute(Fr, pos, Fr.array(std, dev))
+    assert torch.equal(got.cpu(), PO.permute(Fr, pos, Fr.array(std, "cpu")))
+    outs = [PO.squeeze(Fr, pos, Fr.array(std[0], d), pow_n_not_one=1 << 22)
+            for d in (dev, "cpu")]
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+    leaves = torch.as_tensor(rng.integers(0, SCALED_FR.p, size=1 << 12))
+    assert torch.equal(PO.tree_digest(Fr, pos, leaves.to(dev)).cpu(),
+                       PO.tree_digest(Fr, pos, leaves))
+
+
+@pytest.mark.parametrize("kind", ["blake2b", "poseidon"])
+def test_fs_proof_on_cuda_matches_cpu(dev, kind):
+    """The n = 16 FS proof on the card equals the CPU port's, nonce and
+    challenge included, with one K2 launch a round; it verifies there."""
+    n = 16
+    rnd = list(range(1, 10))
+    outs = []
+    for d in ("cpu", dev):
+        ctx = PS.scaled_new(n, device=d)
+        sel, cp, a, b, c = square_chain_circuit(ctx.params.field.p, n)
+        prover = (FS.ScaledFsProver if kind == "blake2b"
+                  else FSP.PoseidonFsProver)(ctx, sel, cp)
+        kernels.reset_counts()
+        out, diags = prover.prove(a, b, c, rnd)
+        assert bool(diags.all_ok())
+        if d != "cpu":
+            assert kernels.LAUNCHES["commit_many"] == 4
+            verify = (FS.verify_scaled_fs if kind == "blake2b"
+                      else FSP.verify_scaled_fs_poseidon)
+            assert verify(ctx, prover.vk, out)
+        outs.append(out)
+    assert outs[0].nonce == outs[1].nonce
+    np.testing.assert_array_equal(outs[0].challenge, outs[1].challenge)
+    for name in POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(outs[0].proof, name)[k],
+                               getattr(outs[1].proof, name)[k].cpu()), name
+    for name in SCALAR_FIELDS:
+        assert int(getattr(outs[0].proof, name)) == \
+            int(getattr(outs[1].proof, name)), name
 
 
 # ---- K5 (full-row transform), K6 (one-pass four-step), K7 (matmul) ----
@@ -393,6 +447,7 @@ def test_mont_matmul_kernel_worst_buckets(dev, C):
 @pytest.mark.parametrize("prims,kernel,per_proof",
                          [("fused", "row_transform", 4),
                           ("onepass", "onepass_ntt", 2),
+                          ("mxu", "mont_matmul", 0),
                           ("mxu2", "mont_matmul", 4)])
 def test_proof_under_prims_on_cuda_matches_cpu(dev, prims, kernel,
                                                per_proof):

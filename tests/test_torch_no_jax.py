@@ -31,14 +31,16 @@ def test_port_imports_no_jax():
     count, bad = first.split(" ", 1)
     assert int(count) >= 40
     assert bad.strip() == "[]"
-    # the modules of every kernel, of every prims, of the sharded prover
-    # and of the toy prover, its verifier and its batch are among those
-    # imported
+    # the modules of every kernel, of every prims, of the sharded prover,
+    # of the toy prover, its verifier and its batch, and of the transcripts
+    # and bytes are among those imported
     for mod in ("ops.row_stages", "ops.fused_ntt", "ops.mxu_ntt",
                 "ops.commit", "ops.bigntt", "ops.bigcommit",
                 "models.plonk_scaled", "models.plonk_bn254",
                 "parallel.mesh", "parallel.collectives", "parallel.dist_ntt",
                 "parallel.dist_scan", "parallel.dist_prover",
                 "ops.msm", "ops.matrix", "models.constraints",
-                "models.presets", "models.verifier", "parallel.batch"):
+                "models.presets", "models.verifier", "parallel.batch",
+                "ops.poseidon", "models.fiat_shamir", "models.fs_poseidon",
+                "utils.serialization", "utils.convert"):
         assert f"plonk_tpu_torch.{mod}" in names.split(), mod

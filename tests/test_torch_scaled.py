@@ -4,6 +4,11 @@
 JAX's prover runs once per module (a compile of minutes on the CPU); JAX's
 verifier is not run, the port's verify covers it. Exact equality: decoded
 scalars, points by x/y/inf."""
+import ast
+import inspect
+import os
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +23,8 @@ from plonk_tpu_torch.ops import curve as C
 from plonk_tpu_torch.ops.field import MontField
 from plonk_tpu_torch.ops import pairing as PR
 from plonk_tpu_torch.utils.convert import (proof_from_numpy, proof_to_numpy,
-                                           srs_from_numpy, table_from_numpy)
+                                           srs_from_numpy, srs_to_numpy,
+                                           table_from_numpy)
 
 N = 16
 CH = [1111, 2222, 3333, 4444, 5555]
@@ -88,11 +94,11 @@ def test_port_proof_matches_jax_prover(jax_run, port):
     _assert_proofs_equal(proof, jax_run["proof"])
 
 
-@pytest.mark.parametrize("prims", ["fused", "onepass", "mxu2"])
+@pytest.mark.parametrize("prims", ["fused", "onepass", "mxu", "mxu2"])
 def test_port_proof_under_prims_matches_jax(jax_run, port, prims):
-    """The coset transforms through K5 (fused), K6 (onepass) or K7 (mxu2)
-    in their own layouts: the proof is JAX's (which does not depend on its
-    prims either)."""
+    """The coset transforms through K5 (fused), K6 (onepass), plain matmul
+    products (mxu) or K7 (mxu2) in their own layouts: the proof is JAX's
+    (which does not depend on its prims either)."""
     ctx = port["ctx"]
     sel, cp, a, b, c = port["circuit"]
     prover = PS.make_prover(ctx, sel, cp,
@@ -106,7 +112,8 @@ def test_auto_prims_reads_plonk_tpu_ntt(monkeypatch):
     ctx = object()
     picks = {None: PS.default_prims, "blocked": PS.default_prims,
              "other": PS.default_prims, "fused": PS.fused_prims,
-             "onepass": PS.onepass_prims, "mxu2": PS.mxu2_prims}
+             "onepass": PS.onepass_prims, "mxu": PS.mxu_prims,
+             "mxu2": PS.mxu2_prims}
     for flag, want in picks.items():
         if flag is None:
             monkeypatch.delenv("PLONK_TPU_NTT", raising=False)
@@ -115,12 +122,7 @@ def test_auto_prims_reads_plonk_tpu_ntt(monkeypatch):
         got = PS._auto_prims(ctx)
         assert (got.ntt8, got.intt8) == (want().ntt8, want().intt8), flag
     assert PS.fused_prims().ntt8 is not PS.default_prims().ntt8
-    # the plain-XLA matmul prims are not ported: raise, never fall back
-    monkeypatch.setenv("PLONK_TPU_NTT", "mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PS._auto_prims(ctx)
-    with pytest.raises(NotImplementedError):
-        PS.mxu_prims()
+    assert PS.mxu_prims().ntt8 is not PS.mxu2_prims().ntt8
 
 
 def test_port_proof_matches_anchors(port):
@@ -183,3 +185,116 @@ def test_port_pairing_bilinear():
         assert bool(C.gt_equal(left, C.gt_pow_static(Fq, SCALED_CURVE.d,
                                                      e, a)))
         assert bool(C.gt_equal(left, right))
+
+
+def _jax_check_messages() -> list:
+    """The messages of JAX's prove_scaled_checked, in source order."""
+    tree = ast.parse(textwrap.dedent(
+        inspect.getsource(JPS.prove_scaled_checked)))
+    calls = [c for c in ast.walk(tree) if isinstance(c, ast.Call)
+             and getattr(c.func, "attr", None) == "check"]
+    return [c.args[1].value for c in sorted(calls, key=lambda c: c.lineno)]
+
+
+@pytest.mark.parametrize("case", ["tag", "index 0", "index n + 1",
+                                  "unsatisfied", "permutation broken"])
+def test_prove_scaled_checked_refuses_bad_input(port, case):
+    """Bad copies raise JAX's message before any gather (an index out of
+    range would raise IndexError there); a witness that breaks a gate or
+    the copy permutation raises the diagnostic's."""
+    ctx = port["ctx"]
+    sel, cp, a, b, c = (np.array(x) for x in port["circuit"])
+    tag, index, satisfied, tail = _jax_check_messages()[:4]
+    want = {"tag": tag, "index 0": index, "index n + 1": index,
+            "unsatisfied": satisfied, "permutation broken": tail}[case]
+    if case == "tag":
+        cp[1, 3, 0] = 3
+    elif case.startswith("index"):
+        cp[0, 5, 1] = 0 if case == "index 0" else N + 1
+    elif case == "unsatisfied":
+        c[2] = (c[2] + 1) % SCALED_FR.p
+    else:
+        cp[2, N - 1] = (0, 1)       # C_{n-1} also copies A_0: no permutation
+    with pytest.raises(ValueError) as err:
+        PS.prove_scaled_checked(ctx, sel, cp, a, b, c, CH, RND)
+    assert str(err.value) == want
+
+
+@pytest.mark.parametrize("flag", PS.ScaledDiagnostics._fields)
+def test_prove_scaled_checked_diagnostic_messages(port, monkeypatch, flag):
+    """Each diagnostic that fails raises JAX's message for it; with all of
+    them holding the checked prover returns make_prover's proof."""
+    ctx = port["ctx"]
+    sel, cp, a, b, c = port["circuit"]
+    proof, diags = PS.prove_scaled_checked(ctx, sel, cp, a, b, c, CH, RND)
+    assert bool(diags.all_ok())
+    _assert_proofs_equal(proof, port["proof"])
+    real = PS.prove_scaled
+
+    def failing(*args, **kw):
+        p, d = real(*args, **kw)
+        return p, d._replace(**{flag: torch.tensor(False)})
+
+    monkeypatch.setattr(PS, "prove_scaled", failing)
+    with pytest.raises(ValueError) as err:
+        PS.prove_scaled_checked(ctx, sel, cp, a, b, c, CH, RND)
+    want = _jax_check_messages()[2 + PS.ScaledDiagnostics._fields.index(
+        flag)]
+    assert str(err.value) == want
+
+
+def test_verify_scaled_many_lane_by_lane(port):
+    """Lanes: the proof, the proof with r_z tampered, a proof with other
+    blinding, and the proof under another challenge: (B,) flags, lane i
+    verify_scaled's of lane i, with and without (zero) public inputs."""
+    ctx, proof = port["ctx"], port["proof"]
+    sel, cp, a, b, c = port["circuit"]
+    vk = PS.make_vk_scaled(ctx, sel, cp)
+    other, diags = PS.make_prover(ctx, sel, cp)(a, b, c, CH,
+                                                [v + 9 for v in RND])
+    assert bool(diags.all_ok())
+    bad = proof._replace(r_z=(proof.r_z + 1) % SCALED_FR.p)
+    lanes = [proof, bad, other, proof]
+    chs = np.array([CH, CH, CH, CH[:4] + [CH[4] + 1]])
+    got = PS.verify_scaled_many(ctx, vk, PS.stack_proofs(lanes), chs)
+    assert got.shape == (4,) and got.tolist() == [True, False, True, False]
+    zeros = np.zeros((4, N), dtype=np.uint32)
+    assert PS.verify_scaled_many(ctx, vk, PS.stack_proofs(lanes), chs,
+                                 public_inputs=zeros).tolist() == got.tolist()
+    for lane, ch, want in zip(lanes, chs, got.tolist()):
+        assert PS.verify_scaled(ctx, vk, lane, ch) == want
+
+
+def test_table_cache_is_jax_s(port, tmp_path, monkeypatch):
+    """The window table's cache file has JAX's key
+    (_fb_cache_path(ctx, pts, 4, pallas=True)) and fields: JAX loads the
+    port's file word for word, the port loads JAX's without building, and
+    a corrupt file is rebuilt over."""
+    monkeypatch.setenv("PLONK_TPU_CACHE", str(tmp_path))
+    ctx = port["ctx"]
+    fresh = lambda: PS.ScaledContext(params=ctx.params, srs=ctx.srs, n=N)
+    srs = srs_to_numpy(ctx.srs)
+    pts = C.G1(srs["g1_x"], srs["g1_y"], srs["g1_inf"])
+    path = PS._fb_cache_path(ctx, 4)
+    assert path == JPS._fb_cache_path(ctx, pts, 4, pallas=True)
+    tbl = PS.fixed_base_table(fresh())
+    assert os.path.exists(path) and os.listdir(tmp_path) == [
+        os.path.basename(path)]
+    jtbl = JPS._fb_disk_load(ctx, pts, 4, pallas=True)
+    for k in range(3):
+        np.testing.assert_array_equal(np.asarray(jtbl[k]), tbl[k].numpy())
+    os.remove(path)
+    JPS._fb_disk_save(ctx, pts, 4, jtbl, pallas=True)
+    build = PS.build_commit_table
+    monkeypatch.setattr(PS, "build_commit_table", None)
+    loaded = PS.fixed_base_table(fresh())
+    for k in range(3):
+        assert torch.equal(loaded[k], tbl[k])
+    assert loaded.window_bits == 4 and loaded.packed is None
+    with open(path, "wb") as f:
+        f.write(b"not an npz")
+    monkeypatch.setattr(PS, "build_commit_table", build)
+    rebuilt = PS.fixed_base_table(fresh())
+    for k in range(3):
+        assert torch.equal(rebuilt[k], tbl[k])
+    assert JPS._fb_disk_load(ctx, pts, 4, pallas=True) is not None
