@@ -136,6 +136,25 @@ builds it and phase 25 loads it):
      launch; then proofs/s of make_prover and both Fiat-Shamir provers
      in turns, verify, batch-verify, cache-load and table-build times.
 
+Then the non-interactive BN254 prover (models/fiat_shamir.py and
+models/fs_poseidon.py over plonk_bn254's stages) and verify_bn254_many:
+ 26. the 16-limb Poseidon (BN254-Fr, t = 3): big_permute on a (64, 3, 16)
+     batch on the card equal to the CPU port's and to PoseidonHost;
+     big_tree_digest of 2^12 random leaves equal to host_tree_digest; a
+     permutation's time, device events (launches) and device time;
+ 27. on phase 11's n = 8 context, the BLAKE2b FS proof and the Poseidon
+     prove_many at B = 2 (lane 0 the single Poseidon proof) equal to the
+     JAX package's recorded proofs (tests/golden/bn254_fs_jax.json), word
+     for word, nonce and challenge included;
+ 28. at 2^12 gates on the context, circuit, prover and verifying key of
+     phases 10-12: both FS provers (their vk equal to make_vk_bn254's;
+     K3 and K4 launches counted exactly: K3 4, K4 4 a proof; diagnostics;
+     the proof equal to make_prover_bn254's for its challenges; verify
+     accepts), verify_bn254_many at B = 4 on [phase 12's proof, the
+     BLAKE2b proof, the Poseidon proof, the BLAKE2b proof with [a]
+     replaced] giving [T, T, T, F], then BLAKE2b FS and make_prover_bn254
+     proofs/s in turns and the build, proof and verify times.
+
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
 product on 8 x 8192 words) or proof-cuda or proof-plain (a sharded 2^16
@@ -212,6 +231,7 @@ N_SMALL = 16
 CH = [1111, 2222, 3333, 4444, 5555]
 RND = list(range(1, 10))
 PROOF_REPS = 5
+TURN_REPS = 3       # proofs of each prims in phases 16 and 19's turns
 # the JAX package's n = 16 proof for (CH, RND), decoded (standard form)
 ANCHOR_SCALARS = dict(a_z=11535495, b_z=4125738, c_z=8864595,
                       s_sigma_1_z=31108, s_sigma_2_z=85023238,
@@ -755,7 +775,9 @@ def k3_times(Fr, inputs: dict) -> dict:
 
 def bn254_phases(dev, card: str, profile: bool):
     """The BN254 phases 9-13; returns (kernel entries for the kernels
-    line, timings)."""
+    line, timings, what phases 26-28 reuse: the n = 8 and 2^12 contexts
+    on the card, the 2^12 circuit, make_prover_bn254's prover, its proof
+    for BN_CH, the verifying key and the single verify's seconds)."""
     timings, errs, kms, bounds = {}, {}, {}, {}
     Fr = BigMontField(BN254_FR)
     Fq = BigMontField(BC.BN254_FQ)
@@ -831,6 +853,7 @@ def bn254_phases(dev, card: str, profile: bool):
     sel8, cp8, a8, b8, c8 = bn254_mul_circuit(N_BN_SMALL)
     for d in ("cpu", dev):
         c_ = PB.bn254_setup(N_BN_SMALL, secret=BN_SECRET, device=d)
+        ctx8 = c_
         proof, diags = PB.make_prover_bn254(c_, sel8, cp8)(
             a8, b8, c8, words_vec(BN_CH), words_vec(BN_RND))
         check(bool(diags.all_ok()), f"n=8 diagnostics on {d}")
@@ -912,7 +935,11 @@ def bn254_phases(dev, card: str, profile: bool):
     print(f"K4 terms with a nonzero digit: {terms}; distinct table entries "
           f"they select: {entries}")
     print_kernel_times(kms)
-    return kernel_entries(BN254_KERNELS, kms, launches, errs, bounds), timings
+    reuse = dict(ctx8=ctx8, ctx=ctx, circuit=(sel, cp, a, b, c),
+                 prover=prover, proof=proof, vk=vk,
+                 verify_s=timings["bn_verify_s"])
+    return (kernel_entries(BN254_KERNELS, kms, launches, errs, bounds),
+            timings, reuse)
 
 
 def kernel_entries(kernel_meta: dict, kms: dict, launches: dict,
@@ -1199,7 +1226,7 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
 
     phase("16 proofs/s of the five prims in turns, kernel times")
     total = collections.Counter()
-    for rep in range(PROOF_REPS):
+    for rep in range(TURN_REPS):
         rnd = [v + 50 + 9 * rep for v in RND]
         for name, prover in provers.items():
             (_, d), sec = wall(lambda: prover(a, b, c, CH, rnd))
@@ -1209,8 +1236,8 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
            for (kname, name), (kern, plain, _) in cases.items()}
     print(f"card: {card}")
     for name in provers:
-        print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
-              f"({PROOF_REPS} synchronised proofs, in turns)")
+        print(f"proofs_per_s {name} {TURN_REPS / total[name]:.6f} "
+              f"({TURN_REPS} synchronised proofs, in turns)")
     print_kernel_times(kms)
     for (kname, name), (_, _, bnd) in cases.items():
         floor = ""
@@ -1615,7 +1642,7 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     phase("19 proofs/s of the default and sharded prims in turns, kernel "
           "times")
     total = collections.Counter()
-    for rep in range(PROOF_REPS):
+    for rep in range(TURN_REPS):
         rnd = [v + 70 + 9 * rep for v in RND]
         for name, prover in provers.items():
             (_, d), sec = wall(lambda: prover(CH, rnd))
@@ -1627,8 +1654,8 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     kms.update(gather_times(timed))
     print(f"card: {card}")
     for name in provers:
-        print(f"proofs_per_s {name} {PROOF_REPS / total[name]:.6f} "
-              f"({PROOF_REPS} synchronised proofs, in turns)")
+        print(f"proofs_per_s {name} {TURN_REPS / total[name]:.6f} "
+              f"({TURN_REPS} synchronised proofs, in turns)")
     print_kernel_times(kms)
     return kernel_entries(DIST_KERNELS, kms, launches, errs, bounds,
                           {"all_to_all": a2a_library})
@@ -1764,7 +1791,7 @@ def toy_phases(dev, card: str) -> None:
                   f"idle share against the mean batch above {idle}")
 
 
-FS_REPS = 3              # synchronised proofs of each prover, in turns
+FS_REPS = 2              # synchronised proofs of each prover, in turns
 MANY_B = 4               # lanes of phase 24's verify_scaled_many
 DIGEST_HOST_M = 1 << 12  # public inputs digested by the host oracle
 CACHE_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_cache")
@@ -1982,6 +2009,180 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
     for name in provers:
         print(f"proofs_per_s {name} {FS_REPS / total[name]:.6f} "
               f"({FS_REPS} synchronised proofs, in turns)")
+    for key, v in times.items():
+        print(f"{key} {v:.6f}")
+
+BN_RND2 = list(range(31, 40))   # prove_many's second lane
+BN_FS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "golden", "bn254_fs_jax.json")
+BN_FS_REPS = 1           # BLAKE2b FS and make_prover_bn254 proofs, in turns
+PERM_BATCH = 64          # states of phase 26's batched permutation
+DIGEST_LEAVES = 1 << 12  # leaves of phase 26's tree digest
+
+
+def bn_fs_fields(out) -> dict:
+    """A BN254 FS proof as tests/golden/bn254_fs_jax.json holds it:
+    points (x, y, inf), evaluations, nonce, challenge as ints."""
+    proof = out.proof
+    d = {k: (from_words(getattr(proof, k).x.cpu()),
+             from_words(getattr(proof, k).y.cpu()),
+             bool(getattr(proof, k).inf)) for k in PB.POINT_FIELDS}
+    d.update({k: from_words(getattr(proof, k).cpu())
+              for k in PB.SCALAR_FIELDS})
+    d["nonce"] = int(out.nonce)
+    d["challenge"] = [from_words(w) for w in np.asarray(out.challenge)]
+    return d
+
+
+def golden_fields(d: dict) -> dict:
+    """A proof of the golden file (hex strings) as bn_fs_fields gives it."""
+    out = {k: (int(d[k][0], 16), int(d[k][1], 16), bool(d[k][2]))
+           for k in PB.POINT_FIELDS}
+    out.update({k: int(d[k], 16) for k in PB.SCALAR_FIELDS})
+    out["nonce"] = int(d["nonce"])
+    out["challenge"] = [int(c, 16) for c in d["challenge"]]
+    return out
+
+
+def bn254_fs_launches(launches: dict) -> bool:
+    """A BN254 FS proof's kernel launches at any nonce: K3 twice in each
+    of the quotient's two 4n-coset transforms (a retry reruns the grand
+    product, whose transform is big_intt, not K3); K4 once a round
+    (B = 3, 1, 3, 2)."""
+    return launches == {"big_row": 4, "big_commit": 4}
+
+
+def bn254_fs_phases(dev, card: str, bn: dict) -> None:
+    """Phases 26-28: the 16-limb Poseidon sponge, the BN254 Fiat–Shamir
+    provers at n = 8 against the JAX package's recorded proofs, then at
+    2^12 gates on the context, circuit, prover and verifying key of
+    phases 10-12, and verify_bn254_many."""
+    Fr = BigMontField(BN254_FR)
+    pos = PO.make_params(Fr.p, t=3)
+    times = {}
+
+    phase("26 the 16-limb Poseidon permutation and tree digest on the card")
+    rng = np.random.default_rng(26)
+    rand = lambda m: np.array([int.from_bytes(rng.bytes(32), "little")
+                               % Fr.p for _ in range(m)], dtype=object)
+    std = rand(PERM_BATCH * 3).reshape(PERM_BATCH, 3)
+    state = Fr.array(std, "cpu")
+    got, times["permute_batch_card_s"] = wall(
+        lambda: PO.big_permute(Fr, pos, state.to(dev)))
+    t = time.perf_counter()
+    want = PO.big_permute(Fr, pos, state)
+    times["permute_batch_cpu_s"] = time.perf_counter() - t
+    host = PO.PoseidonHost(pos)
+    t = time.perf_counter()
+    oracle = [host.permute(list(row)) for row in std]
+    times["permute_batch_host_s"] = time.perf_counter() - t
+    check(torch.equal(got.cpu(), want), "big_permute: card == CPU port")
+    check(Fr.decode_host(got).tolist() == oracle,
+          "big_permute: card == PoseidonHost")
+    leaves = rand(DIGEST_LEAVES)
+    words = torch.as_tensor(words_vec(leaves.tolist()).astype(np.int64))
+    digest, times["tree_digest_card_s"] = wall(lambda: from_words(Fr.decode(
+        PO.big_tree_digest(Fr, pos, words.to(dev))).cpu()))
+    t = time.perf_counter()
+    want_digest = PO.host_tree_digest(pos, leaves.tolist())
+    times["tree_digest_host_s"] = time.perf_counter() - t
+    check(digest == want_digest, "big_tree_digest: card == host_tree_digest")
+    one = Fr.array(np.array([1, 2, 3], dtype=object), dev)
+    _, times["permute_one_card_s"] = wall(lambda: PO.big_permute(Fr, pos,
+                                                                 one))
+    n_dev, dev_us, _, top = profiled_proofs(
+        lambda rep: PO.big_permute(Fr, pos, one), 1)
+    print(f"big_permute ({PERM_BATCH}, 3, 16): card == CPU port == "
+          f"PoseidonHost; big_tree_digest of {DIGEST_LEAVES} leaves == "
+          f"host_tree_digest; one (3, 16) permutation: "
+          f"{times['permute_one_card_s'] * 1e3:.3f} ms, {n_dev:.0f} device "
+          f"events (launches), {dev_us / 1e3:.3f} ms of device time ({card}); "
+          f"top {[(k[:40], round(us / 1e3, 3)) for k, us in top[:3]]}")
+
+    phase("27 n = 8 BN254 Fiat–Shamir proofs on the card vs recorded JAX "
+          "values")
+    with open(BN_FS_GOLDEN) as f:
+        golden = json.load(f)
+    ctx8 = bn["ctx8"]
+    sel8, cp8, a8, b8, c8 = bn254_mul_circuit(N_BN_SMALL)
+    rnd = words_vec(BN_RND)
+    fs8 = FS.BN254FsProver(ctx8, sel8, cp8)
+    (out, d), sec = wall(lambda: fs8.prove(a8, b8, c8, rnd))
+    check(bool(d.all_ok()) and bn_fs_fields(out)
+          == golden_fields(golden["blake2b"]),
+          "n=8 BLAKE2b FS proof equals JAX's")
+    fsp8 = FSP.BN254PoseidonFsProver(ctx8, sel8, cp8)
+    # prove_many proves lane by lane through prove(): lane 0 is the single
+    # Poseidon proof of BN_RND
+    many, many_s = wall(lambda: fsp8.prove_many(
+        *(np.stack([w, w]) for w in (a8, b8, c8)),
+        np.stack([rnd, words_vec(BN_RND2)])))
+    check(all(bool(dd.all_ok()) for _, dd in many), "n=8 prove_many diags")
+    check(bn_fs_fields(many[0][0]) == golden_fields(golden["poseidon"]),
+          "n=8 Poseidon FS proof equals JAX's")
+    check([bn_fs_fields(o) for o, _ in many]
+          == [golden_fields(g) for g in golden["prove_many"]],
+          "n=8 prove_many lanes equal JAX's")
+    print(f"n=8 BLAKE2b FS proof ({sec:.3f} s), Poseidon prove_many at B = 2 "
+          f"({many_s:.3f} s, lane 0 the single Poseidon proof) equal JAX's "
+          f"recorded proofs word for word, nonces and challenges included")
+
+    phase("28 the BN254 Fiat–Shamir provers and verify_bn254_many at 2^12 "
+          "gates")
+    ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
+    sel, cp, a, b, c = bn["circuit"]
+    provers, outs = {}, {}
+    for kind, make, verify in (
+            ("blake2b", FS.BN254FsProver, FS.verify_bn254_fs),
+            ("poseidon", FSP.BN254PoseidonFsProver,
+             FSP.verify_bn254_fs_poseidon)):
+        fs, times[f"{kind}_build_s"] = wall(lambda: make(ctx, sel, cp))
+        check(all(torch.equal(x, y) for p, q in zip(fs.vk, vk)
+                  for x, y in zip(p, q)), f"{kind} vk equals make_vk_bn254's")
+        kernels.reset_counts()
+        (out, diags), times[f"{kind}_first_proof_s"] = wall(
+            lambda: fs.prove(a, b, c, rnd))
+        launches = dict(kernels.LAUNCHES)
+        print(f"{kind}: build {times[f'{kind}_build_s']:.3f} s, first proof "
+              f"{times[f'{kind}_first_proof_s']:.3f} s, nonce {out.nonce}, "
+              f"launches {launches}")
+        check(bool(diags.all_ok()), f"{kind} 2^12 diagnostics {diags}")
+        check(bn254_fs_launches(launches), f"{kind} K3/K4 launches")
+        interactive, d = prover(a, b, c, out.challenge, rnd)
+        check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
+              f"{kind} proof equals make_prover_bn254's for its challenges")
+        ok, times[f"{kind}_verify_s"] = wall(lambda: verify(ctx, fs.vk, out))
+        check(ok, f"{kind} verify accepts")
+        provers[kind], outs[kind] = fs, out
+    blake = outs["blake2b"]
+    proofs = [bn["proof"], blake.proof, outs["poseidon"].proof,
+              blake.proof._replace(a_s=blake.proof.b_s)]
+    chs = np.stack([words_vec(BN_CH), blake.challenge,
+                    outs["poseidon"].challenge, blake.challenge])
+    flags, times["verify_many_s"] = wall(lambda: PB.verify_bn254_many(
+        ctx, vk, PB.stack_proofs(proofs), chs))
+    singles = [bn["verify_s"], times["blake2b_verify_s"],
+               times["poseidon_verify_s"]]
+    print(f"verify_bn254_many on [interactive, BLAKE2b, Poseidon, tampered]: "
+          f"{flags.tolist()} in {times['verify_many_s']:.3f} s; single "
+          f"verifies in this run {[round(x, 3) for x in singles]} s, four "
+          f"at their mean {4 * sum(singles) / len(singles):.3f} s")
+    check(flags.tolist() == [True, True, True, False],
+          "verify_bn254_many flags [T, T, T, F]")
+    print(f"card: {card}")
+    total = collections.Counter()
+    for rep in range(BN_FS_REPS):
+        r = words_vec([v + 200 + 9 * rep for v in BN_RND])
+        for name, prove in (
+                ("make_prover_bn254",
+                 lambda: prover(a, b, c, words_vec(BN_CH), r)),
+                ("blake2b", lambda: provers["blake2b"].prove(a, b, c, r))):
+            (_, d), sec = wall(prove)
+            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
+            total[name] += sec
+    for name, sec in total.items():
+        print(f"proofs_per_s {name} {BN_FS_REPS / sec:.6f} ({BN_FS_REPS} "
+              f"synchronised 2^12 proofs, in turns)")
     for key, v in times.items():
         print(f"{key} {v:.6f}")
 
@@ -2398,13 +2599,14 @@ def main() -> None:
                       1 / timings["proofs_per_s"])
     bounds = k12_bounds(k1_inputs, k2_inputs)
     entries = kernel_entries(KERNELS, kms, launches, errs, bounds)
-    bn_entries, _ = bn254_phases(dev, card, args.profile)
+    bn_entries, _, bn = bn254_phases(dev, card, args.profile)
     pr_entries = prims_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                               prover)
     dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                                prover, vk)
     toy_phases(dev, card)
     fs_phases(dev, card, ctx, (sel, cp, a, b, c), proof, prover, vk)
+    bn254_fs_phases(dev, card, bn)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries

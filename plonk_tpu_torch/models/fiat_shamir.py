@@ -1,8 +1,8 @@
 """Round-phased Fiat–Shamir transform over a BLAKE2b transcript.
 
-Port of the scaled and toy halves of `plonk_tpu/models/fiat_shamir.py`
-(the BN254 prover is not ported). The transcript is `hashlib` BLAKE2b on
-the host, between the prover's stages:
+Port of `plonk_tpu/models/fiat_shamir.py`: the scaled, BN254 and toy
+provers. The transcript is `hashlib` BLAKE2b on the host, between the
+prover's stages:
 
     preamble:  label, protocol params, verification key, public nonce
     round 1:   absorb [a]_1 [b]_1 [c]_1            -> beta, gamma
@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from ..ops.curve import G1
+from ..utils.params import BN254_FR
 from .plonk import SCALAR_FIELDS, Proof
+from . import plonk_bn254 as PB
 from . import plonk_scaled as PS
 
 
@@ -251,6 +253,173 @@ def verify_scaled_fs(ctx, vk, fs_proof: FsProof,
                             fs_proof.proof, fs_proof.nonce, public_inputs)
     return PS.verify_scaled(ctx, vk, fs_proof.proof, ch,
                             public_inputs=public_inputs)
+
+
+# ---------------- BN254 prover (production curve) ---------------------
+#
+# The same round-phased transcript over 254-bit challenges, carried as
+# (16,) 16-bit-word arrays: commitments are absorbed as their (16,) x and
+# y words and 0-d infinity flag, the evaluations as one (7, 16) array, so
+# the bytes equal the JAX package's.
+
+BN254_LABEL = b"tpu-plonk-bn254-fs-v1"
+
+
+def _bn254_words(v: int) -> np.ndarray:
+    return np.array([(int(v) >> (16 * k)) & 0xFFFF for k in range(16)],
+                    dtype=np.uint32)
+
+
+def _bn254_preamble(label: bytes, ctx, vk_points, nonce: int,
+                    public_inputs=None) -> Transcript:
+    r = BN254_FR.p
+    t = Transcript(label, r)
+    t.absorb_scalars(b"params", np.concatenate(
+        [_bn254_words(r), _bn254_words(ctx.n), _bn254_words(ctx.k1),
+         _bn254_words(ctx.k2), _bn254_words(ctx.omega)]))
+    for i, pt in enumerate(vk_points):
+        t.absorb_point(b"vk%d" % i, pt)
+    if public_inputs is not None:
+        t.absorb_scalars(b"pi", _host(public_inputs))
+    t.absorb_scalars(b"nonce", np.asarray([nonce], dtype=np.uint32))
+    return t
+
+
+def _bn254_derive_from_proof(label: bytes, ctx, vk_points, proof,
+                             nonce: int, public_inputs=None) -> np.ndarray:
+    """The verifier side: replay the transcript from the proof. Returns
+    the (5, 16) standard-form challenge words [alpha beta gamma z v]."""
+    t = _bn254_preamble(label, ctx, vk_points, nonce, public_inputs)
+    t.absorb_point(b"a", proof.a_s)
+    t.absorb_point(b"b", proof.b_s)
+    t.absorb_point(b"c", proof.c_s)
+    beta = t.squeeze()
+    gamma = t.squeeze()
+    t.absorb_point(b"z", proof.z_s)
+    alpha = t.squeeze()
+    t.absorb_point(b"t_lo", proof.t_lo_s)
+    t.absorb_point(b"t_mid", proof.t_mid_s)
+    t.absorb_point(b"t_hi", proof.t_hi_s)
+    z = t.squeeze(_not_in_domain(t.p, ctx.n))
+    t.absorb_scalars(b"evals", _eval_words(proof))
+    v = t.squeeze()
+    return np.stack([_bn254_words(c) for c in (alpha, beta, gamma, z, v)])
+
+
+class _BN254Stages:
+    """What both BN254 FS provers share: the prims (default
+    PB._local_prims, commitments through the window table, K4 on the
+    card), the verifying key and the circuit tables, made once."""
+
+    def __init__(self, ctx, selectors, copies, prims=None):
+        self.ctx = ctx
+        self._prims = prims if prims is not None else PB._local_prims(ctx)
+        self.vk = PB.make_vk_bn254(ctx, selectors, copies,
+                                   prims=self._prims)
+        self._vk_points = list(self.vk)
+        self._pre = PB.precompute_bn254(ctx, selectors, copies, self._prims)
+
+    def _commit(self, polys) -> list:
+        """One commit_many of the polynomials -> standard-form points."""
+        Fq = self.ctx.Fq
+        cms = self._prims.commit_many(polys)
+        xs, ys = Fq.decode(cms.x), Fq.decode(cms.y)
+        return [PB.BigG1Affine(xs[i], ys[i], cms.inf[i])
+                for i in range(len(polys))]
+
+    def _proof(self, pts, q5) -> PB.BN254Proof:
+        """The nine points in proof order and the evaluations of q5."""
+        return PB.BN254Proof(*pts, *self.ctx.Fr.decode(torch.stack(
+            [q5[k] for k in SCALAR_FIELDS])).unbind(0))
+
+
+class BN254FsProver(_BN254Stages):
+    """Non-interactive BN254 prover: each proof runs the four stages of
+    plonk_bn254 on the context's device, each committing its own
+    polynomials through K4 (B = 3, 1, 3, 2), and hashes on the host in
+    between. Usage:
+
+        fs = BN254FsProver(ctx, selectors, copies)
+        out, diags = fs.prove(a_w, b_w, c_w, rand9)
+        assert verify_bn254_fs(ctx, fs.vk, out)
+    """
+
+    def __init__(self, ctx, selectors, copies, label: bytes = BN254_LABEL,
+                 prims=None):
+        super().__init__(ctx, selectors, copies, prims)
+        self.label = label
+
+    def _encode(self, ch_std) -> list:
+        """Standard-form challenges -> Montgomery (16,) tensors."""
+        ctx = self.ctx
+        ch = ctx.Fr.encode(PB._as_words(
+            np.stack([_bn254_words(c) for c in ch_std]), ctx.device))
+        return list(ch.unbind(0))
+
+    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None,
+              max_retries: int = 32):
+        """Returns (FsProof, BN254Diagnostics). Nonces 0 .. max_retries - 1
+        are tried for an admissible beta/gamma; RuntimeError if none is."""
+        ctx, prims = self.ctx, self._prims
+        Fr = ctx.Fr
+        st = PB._stage_prep(ctx, a_w, b_w, c_w, rand9, prims, self._pre,
+                            public_inputs)
+        pt1 = self._commit([st["a_x"], st["b_x"], st["c_x"]])
+
+        for nonce in range(max_retries):
+            t = _bn254_preamble(self.label, ctx, self._vk_points, nonce,
+                                public_inputs)
+            for tag, pt in zip((b"a", b"b", b"c"), pt1):
+                t.absorb_point(tag, pt)
+            beta = t.squeeze()
+            gamma = t.squeeze()
+            beta_m, gamma_m = self._encode([beta, gamma])
+            z_x, den_ok = PB._stage_grand_product(ctx, st, beta_m, gamma_m,
+                                                  prims)
+            if bool(den_ok):
+                break
+        else:
+            raise RuntimeError(
+                "no admissible beta/gamma in %d retries" % max_retries)
+
+        (z_pt,) = self._commit([z_x])
+        t.absorb_point(b"z", z_pt)
+        alpha = t.squeeze()
+        (alpha_m,) = self._encode([alpha])
+        q3 = PB._stage_quotient(ctx, st, z_x, alpha_m, beta_m, gamma_m,
+                                prims)
+        pt3 = self._commit([q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"]])
+        for tag, pt in zip((b"t_lo", b"t_mid", b"t_hi"), pt3):
+            t.absorb_point(tag, pt)
+        zch = t.squeeze(_not_in_domain(t.p, ctx.n))
+        # v depends on the evaluations, which do not depend on v: evaluate
+        # with v = 1 (no commitment), absorb, then open with the real v
+        ch = [alpha, beta, gamma, zch, 1]
+        q5 = PB._stage_openings(ctx, st, q3, z_x, *self._encode(ch))
+        t.absorb_scalars(b"evals", Fr.decode(torch.stack(
+            [q5[k] for k in SCALAR_FIELDS])))
+        ch[4] = t.squeeze()
+        q5 = PB._stage_openings(ctx, st, q3, z_x, *self._encode(ch))
+        pt4 = self._commit([q5["w_z_x_quo"], q5["w_z_omega_x"]])
+
+        proof = self._proof(pt1 + [z_pt] + pt3 + pt4, q5)
+        diags = PB.BN254Diagnostics(
+            satisfied=st["satisfied"], t_tail_zero=q3["t_tail_zero"],
+            w_z_rem_zero=q5["rem1"], w_zw_rem_zero=q5["rem2"])
+        return (FsProof(proof=proof, nonce=nonce,
+                        challenge=np.stack([_bn254_words(c) for c in ch])),
+                diags)
+
+
+def verify_bn254_fs(ctx, vk, fs_proof: FsProof, label: bytes = BN254_LABEL,
+                    public_inputs=None) -> bool:
+    """Re-derive the challenges from the transcript (on the host) and run
+    the two real-pairing checks. Any tampered commitment or evaluation
+    changes the derived challenges and the pairing identity."""
+    ch = _bn254_derive_from_proof(label, ctx, list(vk), fs_proof.proof,
+                                  fs_proof.nonce, public_inputs)
+    return PB.verify_bn254(ctx, vk, fs_proof.proof, ch,
+                           public_inputs=public_inputs)
 
 
 # ---------------- toy prover (whole-prover replay) ----------------------

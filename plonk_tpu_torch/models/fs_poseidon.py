@@ -1,7 +1,7 @@
 """Non-interactive scaled prover with a Poseidon transcript on the device.
 
-Port of the scaled half of `plonk_tpu/models/fs_poseidon.py` (the BN254
-prover is not ported). With an algebraic sponge (ops/poseidon.py) the
+Port of `plonk_tpu/models/fs_poseidon.py`: the scaled and the BN254
+provers. With an algebraic sponge (ops/poseidon.py) the
 challenges are field arithmetic on the prover's device: the sponge state
 never leaves it, and only the retry test and the squeezes' rejection tests
 read a flag back. The verifier replays the transcript with the Python-int
@@ -23,6 +23,11 @@ inputs enter as a Poseidon tree digest. An inadmissible beta/gamma
 (vanishing permutation denominator, src/plonk.h:506-510) makes the prover
 retry with the next public nonce, up to nonce MAX_NONCE: 33 attempts, as
 the JAX package's while loop makes.
+
+The BN254 prover runs the same layout over the 16-limb sponge at t = 3,
+capacity 1 (rate 2): a G1 coordinate lives in Fq, not the sponge's Fr,
+so each absorbs as its two 128-bit halves (each below r), then the
+infinity flag; evaluations are Fr elements and absorb as they are.
 """
 from __future__ import annotations
 
@@ -31,10 +36,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+import torch.nn.functional as TF
+
 from ..ops import poseidon as PO
-from .fiat_shamir import _host, _points
+from ..utils.params import BN254_FR
+from .fiat_shamir import _BN254Stages, _bn254_words, _host, _points
 from .plonk import SCALAR_FIELDS, Proof
+from . import plonk_bn254 as PB
 from . import plonk_scaled as PS
+from .synthetic import from_words
 
 LABEL = b"tpu-plonk-fs-poseidon-v1"
 MAX_NONCE = 32
@@ -253,3 +263,185 @@ def verify_scaled_fs_poseidon(ctx, vk, fs_proof: PoseidonFsProof,
                                 fs_proof.nonce, pi_digest=pid)
     return PS.verify_scaled(ctx, vk, fs_proof.proof, ch,
                             public_inputs=public_inputs)
+
+
+# ---------------- BN254 (production curve, 16-limb sponge) -------------
+
+BN254_LABEL = b"tpu-plonk-bn254-fs-poseidon-v1"
+BN254_CAPACITY = 1
+_M128 = (1 << 128) - 1
+
+
+def _bn254_host_point_elements(pt) -> list:
+    """Standard-form BigG1Affine -> [x_lo, x_hi, y_lo, y_hi, inf] ints
+    (128-bit halves)."""
+    x, y = from_words(_host(pt.x)), from_words(_host(pt.y))
+    return [x & _M128, x >> 128, y & _M128, y >> 128,
+            int(bool(_host(pt.inf)))]
+
+
+def _bn254_preamble_elements(ctx, vk_points) -> list:
+    r = BN254_FR.p
+    elems = _label_elements(BN254_LABEL)
+    elems += [r & _M128, r >> 128, ctx.n, ctx.k1, ctx.k2, ctx.omega % r]
+    for pt in vk_points:
+        elems += _bn254_host_point_elements(pt)
+    return elems
+
+
+def _bn254_device_point_elements(F, pts) -> list:
+    """Standard-form points (words on the device) -> Montgomery (16,)
+    absorb list, chunked as _bn254_host_point_elements: each coordinate's
+    low and high 8 words, then the flag, encoded in one product."""
+    rows = []
+    for pt in pts:
+        for w in (pt.x, pt.y):
+            rows += [TF.pad(w[:8], (0, 8)), TF.pad(w[8:], (0, 8))]
+        rows.append(TF.pad(pt.inf.to(torch.int64)[None], (0, 15)))
+    return list(F.encode(torch.stack(rows)).unbind(0))
+
+
+class BN254PoseidonFsProver(_BN254Stages):
+    """Non-interactive prover for a fixed BN254 circuit with the 16-limb
+    sponge on the context's device. The verifying key, window table,
+    circuit tables, post-preamble sponge state and the digest of all-zero
+    public inputs are made once. Each proof runs the four stages of
+    plonk_bn254 (K3 in the quotient, K4 once a round: B = 3, 1, 3, 2);
+    only the retry test and the squeezes' rejection tests read a flag
+    back.
+
+        fs = BN254PoseidonFsProver(ctx, selectors, copies)
+        out, diags = fs.prove(a_w, b_w, c_w, rand9)
+        assert verify_bn254_fs_poseidon(ctx, fs.vk, out)
+    """
+
+    def __init__(self, ctx, selectors, copies, prims=None):
+        super().__init__(ctx, selectors, copies, prims)
+        Fr = ctx.Fr
+        self.pos = PO.make_params(BN254_FR.p, t=3)
+        # the preamble is proof-independent: absorbed once on the host, its
+        # state encoded once
+        hs = PO.HostSponge(self.pos, BN254_CAPACITY)
+        hs.absorb_elements(_bn254_preamble_elements(ctx, self._vk_points))
+        self._state0 = Fr.array(np.asarray(hs.state, dtype=object),
+                                ctx.device)
+        # the zero tree repeats one pair a level: log2(n) host permutations
+        self._zero_pi_digest = Fr.array(
+            [PO.host_tree_digest(self.pos, [0] * ctx.n)], ctx.device)[0]
+
+    def _absorb(self, s, elems):
+        return PO.big_absorb_elements(self.ctx.Fr, self.pos, s, elems,
+                                      BN254_CAPACITY)
+
+    def _squeeze(self, s, pow_n_not_one=None):
+        return PO.big_squeeze(self.ctx.Fr, self.pos, s,
+                              pow_n_not_one=pow_n_not_one)
+
+    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """Returns (PoseidonFsProof, BN254Diagnostics); RuntimeError when
+        no nonce up to MAX_NONCE gives an admissible beta/gamma."""
+        ctx, prims = self.ctx, self._prims
+        Fr = ctx.Fr
+        st = PB._stage_prep(ctx, a_w, b_w, c_w, rand9, prims, self._pre,
+                            public_inputs)
+        pt1 = self._commit([st["a_x"], st["b_x"], st["c_x"]])
+        c1_elems = _bn254_device_point_elements(Fr, pt1)
+        pid = (self._zero_pi_digest if public_inputs is None else
+               PO.big_tree_digest(Fr, self.pos,
+                                  PB._as_words(public_inputs, ctx.device)))
+
+        for nonce in range(MAX_NONCE + 1):
+            s = self._absorb(self._state0, [pid, nonce])
+            s = self._absorb(s, c1_elems)
+            beta_std, s = self._squeeze(s)
+            gamma_std, s = self._squeeze(s)
+            beta, gamma = Fr.encode(torch.stack([beta_std, gamma_std]))
+            z_x, den_ok = PB._stage_grand_product(ctx, st, beta, gamma,
+                                                  prims)
+            if bool(den_ok):
+                break
+        else:
+            raise RuntimeError(
+                "no admissible beta/gamma in %d retries" % MAX_NONCE)
+
+        (z_pt,) = self._commit([z_x])
+        s = self._absorb(s, _bn254_device_point_elements(Fr, [z_pt]))
+        alpha_std, s = self._squeeze(s)
+        alpha = Fr.encode(alpha_std)
+        q3 = PB._stage_quotient(ctx, st, z_x, alpha, beta, gamma, prims)
+        pt3 = self._commit([q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"]])
+        s = self._absorb(s, _bn254_device_point_elements(Fr, pt3))
+        z_std, s = self._squeeze(s, pow_n_not_one=ctx.n)
+        zc = Fr.encode(z_std)
+
+        # the evaluations do not depend on v: evaluate with v = 1, absorb,
+        # squeeze the real v, then open
+        one = Fr.full(1, (), ctx.device)
+        q5 = PB._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
+                                one)
+        s = self._absorb(s, [q5[k] for k in SCALAR_FIELDS])
+        v_std, s = self._squeeze(s)
+        q5 = PB._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
+                                Fr.encode(v_std))
+        pt4 = self._commit([q5["w_z_x_quo"], q5["w_z_omega_x"]])
+        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std])
+
+        proof = self._proof(pt1 + [z_pt] + pt3 + pt4, q5)
+        diags = PB.BN254Diagnostics(
+            satisfied=st["satisfied"], t_tail_zero=q3["t_tail_zero"],
+            w_z_rem_zero=q5["rem1"], w_zw_rem_zero=q5["rem2"])
+        return (PoseidonFsProof(proof=proof, nonce=nonce,
+                                challenge=_host(ch).astype(np.uint32)),
+                diags)
+
+    def prove_many(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """B proofs: the inputs carry a leading batch axis; returns a list
+        of (PoseidonFsProof, diags), lane i equal to prove() of lane i.
+        The stages take one proof (batched BN254 proving is ROADMAP queue
+        1 item 10), so the lanes are proved one after another, where the
+        JAX package runs them as one vmapped call."""
+        return [self.prove(a_w[i], b_w[i], c_w[i], rand9[i],
+                           None if public_inputs is None
+                           else public_inputs[i])
+                for i in range(len(a_w))]
+
+
+def derive_bn254_challenges_host(ctx, vk_points, proof, nonce: int,
+                                 public_inputs=None) -> np.ndarray:
+    """Verifier-side BN254 transcript replay with the Python-int Poseidon
+    (the public-input digest too). Returns the (5, 16) standard-form
+    challenge words [alpha beta gamma z v]."""
+    pos = PO.make_params(BN254_FR.p, t=3)
+    n = ctx.n
+    hs = PO.HostSponge(pos, BN254_CAPACITY)
+    hs.absorb_elements(_bn254_preamble_elements(ctx, vk_points))
+    pi = ([0] * n if public_inputs is None
+          else [from_words(w) for w in _host(public_inputs)])
+    hs.absorb_elements([PO.host_tree_digest(pos, pi), int(nonce)])
+    hs.absorb_elements(
+        _bn254_host_point_elements(proof.a_s)
+        + _bn254_host_point_elements(proof.b_s)
+        + _bn254_host_point_elements(proof.c_s))
+    beta = hs.squeeze()
+    gamma = hs.squeeze()
+    hs.absorb_elements(_bn254_host_point_elements(proof.z_s))
+    alpha = hs.squeeze()
+    hs.absorb_elements(
+        _bn254_host_point_elements(proof.t_lo_s)
+        + _bn254_host_point_elements(proof.t_mid_s)
+        + _bn254_host_point_elements(proof.t_hi_s))
+    z = hs.squeeze(pow_n_not_one=n)
+    hs.absorb_elements([from_words(_host(getattr(proof, k)))
+                        for k in SCALAR_FIELDS])
+    v = hs.squeeze()
+    return np.stack([_bn254_words(c) for c in (alpha, beta, gamma, z, v)])
+
+
+def verify_bn254_fs_poseidon(ctx, vk, fs_proof: PoseidonFsProof,
+                             public_inputs=None) -> bool:
+    """Replay the 254-bit Poseidon transcript on the host and run the two
+    real-pairing checks."""
+    ch = derive_bn254_challenges_host(ctx, list(vk), fs_proof.proof,
+                                      fs_proof.nonce, public_inputs)
+    return PB.verify_bn254(ctx, vk, fs_proof.proof, ch,
+                           public_inputs=public_inputs)

@@ -12,8 +12,9 @@ Shapes: a field element is a (16,) tensor of 16-bit words; a polynomial
 is (n, 16) with the coefficient axis at -2. Witnesses, challenges and
 blinding scalars enter as standard-form word arrays; everything between
 is Montgomery form; the proof leaves in standard form. The device of the
-context's SRS is where a proof runs. Left for later (ROADMAP): the batched
-verifier, the Fiat-Shamir provers, the SRS and table disk caches, GLV and
+context's SRS is where a proof runs. The Fiat-Shamir provers over this
+module's stages are in models/fiat_shamir.py and models/fs_poseidon.py.
+Left for later (ROADMAP): the SRS and table disk caches, GLV and
 Pippenger commitments, the sharded prover.
 """
 from __future__ import annotations
@@ -403,14 +404,17 @@ def _stage_grand_product(ctx: BN254Context, st, beta, gamma, prims):
     pair = Fr.mont_mul(lin[[0, 3]], lin[[1, 4]])
     denom, numer = Fr.mont_mul(pair, lin[[2, 5]]).unbind(0)
     # a vanishing factor makes the later t-division fail, as the
-    # reference's remainder assert does
+    # reference's remainder assert does (src/plonk.h:506-510); the FS
+    # provers retry on a fresh nonce when a product vanishes
+    denominator_ok = ((numer != 0).any(-1).all()
+                      & (denom != 0).any(-1).all())
     fractions = Fr.mont_mul(denom, BPol.batch_inv(Fr, numer))
     acc_x = prims.intt_n(Fr, prims.grand_product(Fr, fractions))
     rnd = st["rnd"]
     out = Fr.zeros((n + 3,), ctx.device)
     out[0], out[1], out[2] = Fr.neg(rnd[8]), Fr.neg(rnd[7]), Fr.neg(rnd[6])
     out[n], out[n + 1], out[n + 2] = rnd[8], rnd[7], rnd[6]
-    return BPol.padd(Fr, out, acc_x)
+    return BPol.padd(Fr, out, acc_x), denominator_ok
 
 
 def _stage_quotient(ctx: BN254Context, st, z_x, alpha, beta, gamma,
@@ -535,7 +539,7 @@ def prove_bn254(ctx: BN254Context, selectors, copies, a_w, b_w, c_w,
     if pre is None:
         pre = precompute_bn254(ctx, selectors, copies, prims)
     st = _stage_prep(ctx, a_w, b_w, c_w, rand9, prims, pre, public_inputs)
-    z_x = _stage_grand_product(ctx, st, beta, gamma, prims)
+    z_x, _ = _stage_grand_product(ctx, st, beta, gamma, prims)
     q3 = _stage_quotient(ctx, st, z_x, alpha, beta, gamma, prims)
     q5 = _stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, z, v)
     cms = prims.commit_many([st["a_x"], st["b_x"], st["c_x"], z_x,
@@ -552,13 +556,17 @@ def prove_bn254(ctx: BN254Context, selectors, copies, a_w, b_w, c_w,
     return proof, diags
 
 
-def make_prover_bn254(ctx: BN254Context, selectors, copies):
-    """Prover for a fixed circuit: the window table and the circuit
-    tables are made once here; returns
+def make_prover_bn254(ctx: BN254Context, selectors, copies,
+                      prims: BN254Prims | None = None):
+    """Prover for a fixed circuit: the circuit tables (and, with the
+    default prims, the window table) are made once here; returns
     fn(a_w, b_w, c_w, challenge, rand9, public_inputs=None)
-    -> (BN254Proof, BN254Diagnostics)."""
-    prims = _local_prims(ctx)
-    bn254_fixed_base_table(ctx)
+    -> (BN254Proof, BN254Diagnostics). `prims` defaults to _local_prims,
+    which commits through the window table (K4 on the card); explicit
+    prims are used as given."""
+    if prims is None:
+        prims = _local_prims(ctx)
+        bn254_fixed_base_table(ctx)
     pre = precompute_bn254(ctx, selectors, copies, prims)
 
     def fn(a_w, b_w, c_w, ch, rnd, public_inputs=None):
@@ -581,17 +589,20 @@ class BN254VK(NamedTuple):
     s3_s: BigG1Affine
 
 
-def make_vk_bn254(ctx: BN254Context, selectors, copies) -> BN254VK:
+def make_vk_bn254(ctx: BN254Context, selectors, copies,
+                  prims: BN254Prims | None = None) -> BN254VK:
     """Selector and permutation commitments (standard-form affine words),
-    committed through the window table (K4 on the card); the JAX package
-    commits them by GLV Pippenger, which gives the same points."""
+    interpolated and committed by `prims` (default _local_prims: through
+    the window table, K4 on the card); the JAX package commits them by GLV
+    Pippenger, which gives the same points."""
     Fr, Fq = ctx.Fr, ctx.Fq
+    prims = prims or _local_prims(ctx)
     sel = Fr.encode(_as_words(selectors, ctx.device))
     sig = _sigma_values(ctx, copies)
     stacked = torch.stack([sel[3], sel[0], sel[1], sel[2], sel[4],
                            sig[0], sig[1], sig[2]])
-    polys = big_intt(Fr, stacked, ctx.omega)
-    cms = bn254_table_commit(ctx)([polys[i] for i in range(8)])
+    polys = prims.intt_n(Fr, stacked)
+    cms = prims.commit_many([polys[i] for i in range(8)])
     xs, ys = Fq.decode(cms.x), Fq.decode(cms.y)
     return BN254VK(*[BigG1Affine(xs[i], ys[i], cms.inf[i])
                      for i in range(8)])
@@ -611,13 +622,17 @@ def _std_bits(words: torch.Tensor, nbits: int = FR_BITS) -> torch.Tensor:
 def _verify_points(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
                    challenge, public_inputs=None):
     """Scalar and G1 reduction of the two KZG checks -> the four pairing
-    lane points (W_z, -R_1, W_zw, -R_2), all Jacobian."""
+    lane points (W_z, -R_1, W_zw, -R_2), all Jacobian. The proof's leaves
+    and the (..., 5, 16) challenge may carry leading batch axes (the
+    points then carry them too); the verifying key and the (n, 16) public
+    inputs are shared by every lane."""
     Fr, Fq = ctx.Fr, ctx.Fq
     n = ctx.n
     dev = ctx.device
     tabs = _tables(ctx)
     ch = Fr.encode(_as_words(challenge, dev))
-    alpha, beta, gamma, z, v = ch.unbind(0)
+    alpha, beta, gamma, z, v = ch.unbind(-2)
+    batch = z.shape[:-1]
     k1c, k2c = Fr.const(ctx.k1), Fr.const(ctx.k2)
     a_z, b_z, c_z, s1_z, s2_z, r_z, zw_z = Fr.encode(torch.stack(
         [getattr(proof, f) for f in SCALAR_FIELDS])).unbind(0)
@@ -637,7 +652,8 @@ def _verify_points(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
     if public_inputs is not None:
         pi_v = Fr.encode(_as_words(public_inputs, dev))
         h = tabs["h"]
-        terms = Fr.mont_mul(Fr.mont_mul(pi_v, h), Fr.inv(Fr.sub(z, h)))
+        terms = Fr.mont_mul(Fr.mont_mul(pi_v, h),
+                            Fr.inv(Fr.sub(z[..., None, :], h)))
         t_z_num = Fr.add(t_z_num, Fr.mont_mul(Fr.mont_mul(z_h_z, n_inv),
                                               BPol.tree_sum(Fr, terms)))
     t_z = Fr.mont_mul(t_z_num, Fr.inv(z_h_z))
@@ -659,12 +675,13 @@ def _verify_points(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
     for coef, val in ((vp[1], r_z), (vp[2], a_z), (vp[3], b_z),
                       (vp[4], c_z), (vp[5], s1_z), (vp[6], s2_z)):
         e_scalar = Fr.add(e_scalar, Fr.mont_mul(coef, val))
-    g = bn254_generator(Fq, (), dev)
+    g = bn254_generator(Fq, batch, dev)
     zw_mont = Fr.mont_mul(z, Fr.const(ctx.omega))
 
-    # one batched double-and-add ladder for all 18 scalar products (point
-    # negations folded into scalar negations mod r)
-    jac = lambda a: _aff_to_jac(Fq, a)
+    # one batched double-and-add ladder for all 18 scalar products of
+    # every lane (point negations folded into scalar negations mod r)
+    jac = lambda a: BigG1J(*(c.expand(batch + (Fq.limbs,))
+                             for c in _aff_to_jac(Fq, a)))
     mv = lambda s_: Fr.mont_mul(vp[1], s_)
     pairs = [
         (jac(proof.t_mid_s), zpp),
@@ -700,22 +717,32 @@ def _verify_points(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
 
 
 def _pairing_ratio_flags(ctx: BN254Context, w1, nr1, w2, nr2):
-    """Second verify stage: the 4-lane Miller loop and one batched final
-    exponentiation of the two ratios -> (ok1, ok2) bool tensors."""
+    """Second verify stage: one Miller loop over the 4B lanes, laid out as
+    the JAX package lays them, [w1_*, nr1_*, w2_*, nr2_*] (B = 1 for
+    points without a batch axis, (B,) with one), and one batched final
+    exponentiation of the 2B ratios -> (ok1, ok2) bool tensors of the
+    points' batch shape."""
     Fp = BPair.pairing_field()
     srs = ctx.srs
-    lanes = BigG1J(*(torch.stack([p[k] for p in (w1, nr1, w2, nr2)])
+    batch = w1.X.shape[:-1]
+    B = w1.X[..., 0].numel()
+    lanes = BigG1J(*(torch.stack([p[k].reshape(B, Fp.limbs)
+                                  for p in (w1, nr1, w2, nr2)]
+                                 ).reshape(4 * B, Fp.limbs)
                      for k in range(3)))
-    qx = torch.stack([srs.g2_sx, srs.g2_1x, srs.g2_sx, srs.g2_1x])
-    qy = torch.stack([srs.g2_sy, srs.g2_1y, srs.g2_sy, srs.g2_1y])
+    qx = torch.stack([srs.g2_sx, srs.g2_1x, srs.g2_sx, srs.g2_1x]
+                     ).repeat_interleave(B, 0)
+    qy = torch.stack([srs.g2_sy, srs.g2_1y, srs.g2_sy, srs.g2_1y]
+                     ).repeat_interleave(B, 0)
     px, py, pinf = big_to_affine(Fp, lanes)
     ml = BPair.miller_loop(Fp, px, py, qx, qy)
     ml = torch.where(pinf[:, None, None, None, None],
-                     f12_one(Fp, (4,), px.device), ml)
-    ratios = f12_mul(Fp, ml[[0, 2]], ml[[1, 3]])
+                     f12_one(Fp, (4 * B,), px.device), ml)
+    ratios = f12_mul(Fp, torch.cat([ml[:B], ml[2 * B:3 * B]]),
+                     torch.cat([ml[B:2 * B], ml[3 * B:]]))
     outs = BPair.final_exponentiation(Fp, ratios)
-    ok = f12_eq(Fp, outs, f12_one(Fp, (2,), px.device))
-    return ok[0], ok[1]
+    ok = f12_eq(Fp, outs, f12_one(Fp, (2 * B,), px.device))
+    return ok[:B].reshape(batch), ok[B:].reshape(batch)
 
 
 def verify_bn254(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
@@ -726,3 +753,26 @@ def verify_bn254(ctx: BN254Context, vk: BN254VK, proof: BN254Proof,
     pts = _verify_points(ctx, vk, proof, challenge, public_inputs)
     ok1, ok2 = _pairing_ratio_flags(ctx, *pts)
     return bool(ok1) and bool(ok2)
+
+
+def verify_bn254_many(ctx: BN254Context, vk: BN254VK, proofs: BN254Proof,
+                      challenges, public_inputs=None) -> torch.Tensor:
+    """Batched verification: every BN254Proof leaf carries a leading batch
+    axis B, `challenges` is (B, 5, 16), and one (n, 16) `public_inputs`
+    (or None) is shared by every lane, as in the JAX package. The scalar
+    and G1 algebra of all lanes runs as one ladder over the B x 18 points,
+    the 4B Miller loops as one, and the 2B ratios share one final
+    exponentiation. Returns a (B,) bool tensor whose lane i is
+    verify_bn254 of proof i."""
+    pts = _verify_points(ctx, vk, proofs, challenges, public_inputs)
+    ok1, ok2 = _pairing_ratio_flags(ctx, *pts)
+    return ok1 & ok2
+
+
+def stack_proofs(proofs) -> BN254Proof:
+    """Proofs stacked along a new leading batch axis (verify_bn254_many's
+    input)."""
+    return BN254Proof(*(
+        BigG1Affine(*(torch.stack([f[k] for f in fields]) for k in range(3)))
+        if isinstance(fields[0], BigG1Affine) else torch.stack(fields)
+        for fields in zip(*proofs)))

@@ -1,24 +1,27 @@
 """Poseidon permutation and sponge over a single-word scalar field: the
 Fiat–Shamir hash that lives on the device.
 
-Port of the single-word part of `plonk_tpu/ops/poseidon.py` (the 16-limb
-BN254 sponge is not ported). The construction is the JAX package's own,
-versioned by `_SEED_FMT`, so both packages derive the same parameters and
-the same digests:
+Port of `plonk_tpu/ops/poseidon.py`. The construction is the JAX
+package's own, versioned by `_SEED_FMT`, so both packages derive the same
+parameters and the same digests:
 
 - x^alpha S-box with the smallest alpha >= 3 coprime to p - 1 (alpha = 5
   for the scaled field r = 27*2^22 + 1);
 - R_F full rounds (default 8) + R_P partial rounds (S-box on lane 0
-  only); for the scaled field t = 8 and 8 + 22 rounds;
+  only); for the scaled field t = 8 and 8 + 22 rounds, for BN254-Fr
+  (the BN254 transcript's t = 3) 8 + 118 rounds;
 - round constants from SHA-256 in counter mode over a seed string that
   binds p, t, alpha and the schedule;
 - MDS matrix the Cauchy matrix 1/(x_i + y_j), x_i = i, y_j = t + j.
 
-Everything exists twice: `permute`, `absorb_elements`, `squeeze` and
-`tree_digest` on Montgomery words in tensors of shape (..., t) (PyTorch
-ops; the JAX package has no Pallas kernel for them), and the Python-int
-oracle (`PoseidonHost`, `HostSponge`, `host_tree_digest`) that a verifier
-replays on the host. Their words are equal (tests/test_torch_poseidon.py).
+Everything exists three times: `permute`, `absorb_elements`, `squeeze`
+and `tree_digest` on single-word Montgomery words in tensors of shape
+(..., t); their 16-limb siblings `big_permute`, `big_absorb_elements`,
+`big_squeeze` and `big_tree_digest` on `BigMontField` words of shape
+(..., t, limbs) (both PyTorch ops; the JAX package has no Pallas kernel
+for them); and the Python-int oracle (`PoseidonHost`, `HostSponge`,
+`host_tree_digest`), arbitrary-precision, that a verifier replays on the
+host. Their words are equal (tests/test_torch_poseidon.py).
 """
 from __future__ import annotations
 
@@ -250,13 +253,116 @@ def tree_digest(F, params: PoseidonParams, leaves) -> torch.Tensor:
 
 
 def host_tree_digest(params: PoseidonParams, leaves) -> int:
+    """The Python-int tree_digest. A pair met before at the same call is
+    not permuted again, so a tree of repeated leaves (the all-zero public
+    inputs) costs one permutation a level."""
     perm = PoseidonHost(params)
     xs = [int(v) % params.p for v in leaves]
     while len(xs) > 1:
-        xs = [perm.permute([xs[2 * i], xs[2 * i + 1]]
-                           + [0] * (params.t - 2))[0]
-              for i in range(len(xs) // 2)]
+        parents = {}
+        for pair in zip(xs[0::2], xs[1::2]):
+            if pair not in parents:
+                parents[pair] = perm.permute(
+                    list(pair) + [0] * (params.t - 2))[0]
+        xs = [parents[pair] for pair in zip(xs[0::2], xs[1::2])]
     return xs[0]
+
+
+# ---------------- 16-limb (BN254-class) permutation and sponge ----------
+#
+# The same permutation and sponge over a BigMontField: a state is
+# (..., t, limbs) Montgomery words, an element (..., limbs). The BN254
+# transcript runs them at t = 3, capacity 1 (models/fs_poseidon.py).
+
+
+@functools.lru_cache(maxsize=None)
+def _big_tables(F, params: PoseidonParams, device: str) -> tuple:
+    """(arc (R, t, limbs), mds (t, t, limbs)) as Montgomery words on
+    `device` (JAX's `_big_host_tables`)."""
+    if params.p != F.p:
+        raise ValueError("the Poseidon parameters are for another field")
+    return (F.array(np.asarray(params.arc, dtype=object), device),
+            F.array(np.asarray(params.mds, dtype=object), device))
+
+
+def big_permute(F, params: PoseidonParams, state: torch.Tensor
+                ) -> torch.Tensor:
+    """The permutation on a (..., t, limbs) Montgomery-form state: R rounds
+    of round constants, S-box (every lane in a full round, lane 0 in a
+    partial one) and the t x t MDS product."""
+    arc, mds = _big_tables(F, params, str(state.device))
+    s = state
+    for r in range(params.rounds):
+        s = F.add(s, arc[r])
+        if params.is_full_round(r):
+            s = _pow_alpha(F, s, params.alpha)
+        else:
+            s = torch.cat([_pow_alpha(F, s[..., :1, :], params.alpha),
+                           s[..., 1:, :]], dim=-2)
+        # out_i = sum_j mds[i, j] * s_j over the state axis
+        prod = F.mont_mul(mds, s[..., None, :, :])
+        acc = prod[..., 0, :]
+        for j in range(1, params.t):
+            acc = F.add(acc, prod[..., j, :])
+        s = acc
+    return s
+
+
+def big_absorb_elements(F, params: PoseidonParams, state: torch.Tensor,
+                        elems: list, capacity: int = 1) -> torch.Tensor:
+    """Duplex-absorb a list of Montgomery-form elements (tensors of shape
+    (..., limbs) that broadcast to the state's batch, or Python ints in
+    standard form), 10*-padded, one permutation a rate-block."""
+    rate = rate_of(params, capacity)
+    batch = state.shape[:-2]
+    padded = [F.full(e, batch, state.device) if isinstance(e, int)
+              else e.expand(batch + (F.limbs,))
+              for e in pad_elements(elems, rate)]
+    for i in range(0, len(padded), rate):
+        block = torch.stack(padded[i:i + rate], dim=-2)   # (..., rate, L)
+        mixed = F.add(state[..., :rate, :], block)
+        state = big_permute(F, params,
+                            torch.cat([mixed, state[..., rate:, :]], dim=-2))
+    return state
+
+
+def big_squeeze(F, params: PoseidonParams, state: torch.Tensor,
+                reject_zero: bool = True, pow_n_not_one: int | None = None):
+    """Squeeze one element per lane with deterministic rejection
+    resampling (0, or optionally v^n == 1, permute again). Lanes that are
+    done keep their state while the others permute, as JAX's while loop
+    does under vmap. Returns (standard-form words (..., limbs), state)."""
+
+    def bad(v):
+        b = torch.zeros(v.shape[:-1], dtype=torch.bool, device=v.device)
+        if reject_zero:
+            b = b | F.is_zero(v)
+        if pow_n_not_one is not None:
+            b = b | F.eq(F.pow_static(v, pow_n_not_one), F.const(1))
+        return b
+
+    state = big_permute(F, params, state)
+    redo = bad(state[..., 0, :])
+    while bool(redo.any()):
+        state = torch.where(redo[..., None, None],
+                            big_permute(F, params, state), state)
+        redo = bad(state[..., 0, :])
+    return F.decode(state[..., 0, :]), state
+
+
+def big_tree_digest(F, params: PoseidonParams, leaves) -> torch.Tensor:
+    """Binary Poseidon tree over (m, limbs) standard-form leaves (m a power
+    of two): log2(m) batched permutations, parent = permute([l, r, 0..])[0].
+    Returns the (limbs,) Montgomery-form digest; host mirror:
+    host_tree_digest."""
+    x = F.encode(leaves)
+    t = params.t
+    while x.shape[0] > 1:
+        m = x.shape[0] // 2
+        state = torch.cat([x[0::2, None], x[1::2, None],
+                           F.zeros((m, t - 2), x.device)], dim=-2)
+        x = big_permute(F, params, state)[:, 0]
+    return x[0]
 
 
 class HostSponge:

@@ -197,3 +197,24 @@ def bn254_proof_to_numpy(proof):
     for name in PB.SCALAR_FIELDS:
         fields[name] = u32(getattr(proof, name))
     return PB.BN254Proof(**fields)
+
+
+def bn254_fs_proof_from_numpy(fs, device) -> FsProof:
+    """FsProof of tensors from a JAX FsProof of a BN254 proof (or any
+    object with proof/nonce/challenge); nonce and (5, 16) challenge
+    kept."""
+    return FsProof(**_fs_fields(fs, bn254_proof_from_numpy(fs.proof,
+                                                           device)))
+
+
+def bn254_poseidon_fs_proof_from_numpy(fs, device) -> PoseidonFsProof:
+    """PoseidonFsProof of tensors from a JAX PoseidonFsProof of a BN254
+    proof (or any object with its fields); nonce and challenge kept."""
+    return PoseidonFsProof(**_fs_fields(fs, bn254_proof_from_numpy(
+        fs.proof, device)))
+
+
+def bn254_fs_proof_to_numpy(fs):
+    """A BN254 FsProof or PoseidonFsProof with its proof as numpy arrays
+    in the JAX package's dtypes, of the same type."""
+    return type(fs)(**_fs_fields(fs, bn254_proof_to_numpy(fs.proof)))

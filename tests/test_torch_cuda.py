@@ -602,6 +602,55 @@ def test_bn254_proof_on_cuda_matches_cpu(dev):
                            getattr(proofs[1], name).cpu()), name
 
 
+def test_big_permute_on_cuda_matches_cpu(dev):
+    """The 16-limb permutation of the BN254 transcript (t = 3) on a (4, 3)
+    batch of seeded states, and a squeeze, give the CPU port's words."""
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    from plonk_tpu_torch.utils.params import BN254_FR
+    F = BigMontField(BN254_FR)
+    pos = PO.make_params(F.p, t=3)
+    rng = np.random.default_rng(26)
+    std = np.array([int.from_bytes(rng.bytes(32), "little") % F.p
+                    for _ in range(12)], dtype=object).reshape(4, 3)
+    x = F.array(std, "cpu")
+    assert torch.equal(PO.big_permute(F, pos, x.to(dev)).cpu(),
+                       PO.big_permute(F, pos, x))
+    outs = [PO.big_squeeze(F, pos, x.to(d), pow_n_not_one=8)
+            for d in (dev, "cpu")]
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kind", ["blake2b", "poseidon"])
+def test_bn254_fs_proof_on_cuda_matches_cpu(dev, kind):
+    """The n = 8 BN254 FS proof on the card equals the CPU port's, nonce
+    and challenge included, with K3 4 and K4 4 launches (one a round)."""
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
+    sel, cp, a, b, c = bn254_mul_circuit(8)
+    rnd = words_vec(range(17, 26))
+    outs = []
+    for d in ("cpu", dev):
+        ctx = PB.bn254_setup(8, secret=987654321, device=d)
+        prover = (FS.BN254FsProver if kind == "blake2b"
+                  else FSP.BN254PoseidonFsProver)(ctx, sel, cp)
+        kernels.reset_counts()
+        out, diags = prover.prove(a, b, c, rnd)
+        assert bool(diags.all_ok())
+        if d != "cpu":
+            assert dict(kernels.LAUNCHES) == {"big_row": 4, "big_commit": 4}
+        outs.append(out)
+    assert outs[0].nonce == outs[1].nonce
+    np.testing.assert_array_equal(outs[0].challenge, outs[1].challenge)
+    for name in PB.POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(outs[0].proof, name)[k],
+                               getattr(outs[1].proof, name)[k].cpu()), name
+    for name in PB.SCALAR_FIELDS:
+        assert torch.equal(getattr(outs[0].proof, name),
+                           getattr(outs[1].proof, name).cpu()), name
+
+
 # ---- K8 (all-gather) and K9 (all-to-all) over shards on one card ----
 
 @pytest.mark.parametrize("D,shape", [(8, (1,)), (8, (3, 5)), (1, (7,)),
