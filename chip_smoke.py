@@ -123,10 +123,9 @@ builds it and phase 25 loads it):
      verify, a tampered commitment and evaluation rejected;
  23. the Poseidon Fiat-Shamir prover (models/fs_poseidon.py): the same
      checks; the card's tree_digest of random public inputs equal to the
-     CPU port's (2^16 of them) and to host_tree_digest (2^12); prove_many
-     at B = 4 equal to four single proofs;
+     CPU port's (2^16 of them) and to host_tree_digest (2^12);
      torch.profiler's device events of one permutation and of one proof
-     of each prover;
+     of each prover (prove_many is phase 30's);
  24. verify_scaled_many at B = 4 proofs of distinct blinding, then with
      one lane tampered, each lane equal to verify_scaled of its proof;
  25. proof and SRS bytes (utils/serialization.py) round-trip on the card
@@ -143,17 +142,44 @@ models/fs_poseidon.py over plonk_bn254's stages) and verify_bn254_many:
      big_tree_digest of 2^12 random leaves equal to host_tree_digest; a
      permutation's time, device events (launches) and device time;
  27. on phase 11's n = 8 context, the BLAKE2b FS proof and the Poseidon
-     prove_many at B = 2 (lane 0 the single Poseidon proof) equal to the
-     JAX package's recorded proofs (tests/golden/bn254_fs_jax.json), word
-     for word, nonce and challenge included;
+     prove_many at B = 2 (one batched pass, lane 0 the single Poseidon
+     proof) equal to the JAX package's recorded proofs
+     (tests/golden/bn254_fs_jax.json), word for word, nonce and challenge
+     included;
  28. at 2^12 gates on the context, circuit, prover and verifying key of
-     phases 10-12: both FS provers (their vk equal to make_vk_bn254's;
-     K3 and K4 launches counted exactly: K3 4, K4 4 a proof; diagnostics;
-     the proof equal to make_prover_bn254's for its challenges; verify
-     accepts), verify_bn254_many at B = 4 on [phase 12's proof, the
-     BLAKE2b proof, the Poseidon proof, the BLAKE2b proof with [a]
-     replaced] giving [T, T, T, F], then BLAKE2b FS and make_prover_bn254
-     proofs/s in turns and the build, proof and verify times.
+     phases 10-12: the BLAKE2b FS prover (its vk equal to
+     make_vk_bn254's; K3 and K4 launches counted exactly: K3 4, K4 4 a
+     proof; diagnostics; the proof equal to make_prover_bn254's for its
+     challenges; verify accepts), then BLAKE2b FS and make_prover_bn254
+     proofs/s in turns and the build, proof and verify times (the
+     Poseidon prover and verify_bn254_many are phase 31's).
+
+Then batched proving, each batch one pass whose kernel launches are one
+proof's:
+ 29. the scaled prover at B = 16 proofs of 2^12 gates on a fresh context
+     and window table (bench.py's bench_scaled_batched: witnesses
+     x0 = 3 + i, challenges 1111..5555, blinding 1..9 + 100 i):
+     make_prover on the batch launches K1 4 and K2 1, as one proof; every
+     lane's diagnostics hold and every lane equals its single proof;
+     verify_scaled_many on the 16 lanes as they come out, then with lane
+     5 tampered, refusing that lane alone; K2 at (144, 4 101) with an
+     all-zero lane against its plain version, card ms and bound;
+     proofs/s of the batch and of one proof in turns; the batch's peak
+     memory;
+ 30. PoseidonFsProver.prove_many at B = 8 (bench_fs_poseidon's lanes) on
+     the 2^16 context of phases 4-7: one batched pass with K1 4 and K2 4,
+     every lane equal to prove() of its inputs (nonce, challenge), lane 0
+     verifies; batch and single proofs/s in turns;
+ 31. on phases 10-12's 2^12 BN254 context, lanes bn254_mul_circuit seeds
+     11 + i with bench.py's blinding variants: BN254PoseidonFsProver.
+     prove_many at B = 4 (K3 4, K4 4; in place of a single Poseidon
+     proof), each lane equal to make_prover_bn254's single proof
+     for its challenges; make_prover_bn254 on the batch (K3 4, K4 1)
+     equal lane by lane; K3 and K4 at the batch's shapes; every lane's
+     challenges equal to the host replay's, then verify_bn254_many on
+     [phase 12's proof, the BLAKE2b proof, the 4 lanes, the BLAKE2b
+     proof with [a] replaced] giving [T, T, T, T, T, T, F] (the Poseidon
+     verify of each lane, batched); batch and single times.
 
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
@@ -231,7 +257,7 @@ N_SMALL = 16
 CH = [1111, 2222, 3333, 4444, 5555]
 RND = list(range(1, 10))
 PROOF_REPS = 5
-TURN_REPS = 3       # proofs of each prims in phases 16 and 19's turns
+TURN_REPS = 2       # proofs of each prims in phases 16 and 19's turns
 # the JAX package's n = 16 proof for (CH, RND), decoded (standard form)
 ANCHOR_SCALARS = dict(a_z=11535495, b_z=4125738, c_z=8864595,
                       s_sigma_1_z=31108, s_sigma_2_z=85023238,
@@ -466,6 +492,7 @@ def proofs_equal(p, q) -> bool:
 STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
           "_stage_openings")
 PROFILE_REPS = 3
+BN_PROFILE_REPS = 1     # phase 13's staged and profiled 2^12 BN254 proofs
 
 
 def staged_proofs(mod, prove, prims, call, reps: int):
@@ -550,20 +577,22 @@ def profiled_proofs(run, reps: int):
             by_name.most_common(6))
 
 
-def print_profile(n_dev, dev_us, prof_s, top, proof_s: float) -> None:
-    """Print profiled_proofs' figures beside the unprofiled proof time."""
+def print_profile(n_dev, dev_us, prof_s, top, proof_s: float,
+                  reps: int = PROFILE_REPS) -> None:
+    """Print profiled_proofs' figures (over `reps` proofs) beside the
+    unprofiled proof time."""
     if n_dev == 0:
         print("torch.profiler recorded no device events: device time and "
               "idle share not measured")
         return
-    print(f"torch.profiler, {PROFILE_REPS} proofs: {n_dev:.1f} device "
+    print(f"torch.profiler, {reps} proofs: {n_dev:.1f} device "
           f"events and {dev_us / 1e3:.3f} ms of device time per proof; "
           f"profiled proof {prof_s * 1e3:.3f} ms; unprofiled proof "
           f"{proof_s * 1e3:.3f} ms, so {proof_s * 1e6 / n_dev:.3f} us "
           f"of host time per device event and the device idle "
           f"{100 * (1 - dev_us / 1e6 / proof_s):.1f} % of it")
     for name, us in top:
-        print(f"  {us / PROFILE_REPS / 1e3:9.3f} ms/proof  {name[:100]}")
+        print(f"  {us / reps / 1e3:9.3f} ms/proof  {name[:100]}")
 
 
 def profile_phase(ctx, prover, sel, cp, a, b, c, vk, proof,
@@ -910,13 +939,13 @@ def bn254_phases(dev, card: str, profile: bool):
         PB, PB.prove_bn254, prims,
         lambda prove, pr, rep: prove(ctx, sel, cp, a, b, c, ch,
                                      rnd_rep(10 + rep), prims=pr,
-                                     pre=pre)[1], PROFILE_REPS)
-    print(f"stages, mean of {PROFILE_REPS} proofs with a synchronise "
+                                     pre=pre)[1], BN_PROFILE_REPS)
+    print(f"stages, mean of {BN_PROFILE_REPS} proofs with a synchronise "
           "around each stage (ms): " + ", ".join(
               f"{k} {v * 1e3:.3f}" for k, v in st.items()))
     n_dev, dev_us, prof_s, top = profiled_proofs(
-        lambda rep: prover(a, b, c, ch, rnd_rep(20 + rep)), PROFILE_REPS)
-    print_profile(n_dev, dev_us, prof_s, top, proof_s)
+        lambda rep: prover(a, b, c, ch, rnd_rep(20 + rep)), BN_PROFILE_REPS)
+    print_profile(n_dev, dev_us, prof_s, top, proof_s, BN_PROFILE_REPS)
     if profile:
         pts_, pts_s = wall(lambda: PB._verify_points(ctx, vk, proof, ch))
         oks, pair_s = wall(lambda: PB._pairing_ratio_flags(ctx, *pts_))
@@ -1791,7 +1820,7 @@ def toy_phases(dev, card: str) -> None:
                   f"idle share against the mean batch above {idle}")
 
 
-FS_REPS = 2              # synchronised proofs of each prover, in turns
+FS_REPS = 1              # synchronised proofs of each prover, in turns
 MANY_B = 4               # lanes of phase 24's verify_scaled_many
 DIGEST_HOST_M = 1 << 12  # public inputs digested by the host oracle
 CACHE_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_cache")
@@ -1892,17 +1921,6 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
               f"s, {ref} {ref_s:.3f} s, equal {got == want}")
         check(got == want, f"the card's tree_digest equals {ref}")
     rnds = np.stack([np.array(RND) + 9 * (i + 1) for i in range(MANY_B)])
-    many, many_s = wall(lambda: fsp.prove_many(
-        *(np.stack([w] * MANY_B) for w in (a, b, c)), rnds))
-    singles = [fsp.prove(a, b, c, r) for r in rnds]
-    check(all(bool(d.all_ok()) and bool(sd.all_ok())
-              and m.nonce == s.nonce
-              and np.array_equal(m.challenge, s.challenge)
-              and proofs_equal(m.proof, s.proof)
-              for (m, d), (s, sd) in zip(many, singles)),
-          f"prove_many at B = {MANY_B} equals {MANY_B} single proofs")
-    print(f"prove_many B={MANY_B} {many_s:.3f} s, equal to {MANY_B} "
-          f"single proofs (lane by lane)")
     for name, run in (
             ("permute of one (8,) state",
              lambda rep: PO.permute(Fr, pos, Fr.ones((8,), dev))),
@@ -2011,6 +2029,8 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
               f"({FS_REPS} synchronised proofs, in turns)")
     for key, v in times.items():
         print(f"{key} {v:.6f}")
+    return fsp
+
 
 BN_RND2 = list(range(31, 40))   # prove_many's second lane
 BN_FS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2056,7 +2076,9 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
     """Phases 26-28: the 16-limb Poseidon sponge, the BN254 Fiat–Shamir
     provers at n = 8 against the JAX package's recorded proofs, then at
     2^12 gates on the context, circuit, prover and verifying key of
-    phases 10-12, and verify_bn254_many."""
+    phases 10-12 (the BLAKE2b prover; the Poseidon prover and
+    verify_bn254_many run in phase 31). Returns the BLAKE2b proof of
+    phase 28 for phase 31's verify_bn254_many."""
     Fr = BigMontField(BN254_FR)
     pos = PO.make_params(Fr.p, t=3)
     times = {}
@@ -2112,8 +2134,7 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
           == golden_fields(golden["blake2b"]),
           "n=8 BLAKE2b FS proof equals JAX's")
     fsp8 = FSP.BN254PoseidonFsProver(ctx8, sel8, cp8)
-    # prove_many proves lane by lane through prove(): lane 0 is the single
-    # Poseidon proof of BN_RND
+    # one batched pass; lane 0 is the single Poseidon proof of BN_RND
     many, many_s = wall(lambda: fsp8.prove_many(
         *(np.stack([w, w]) for w in (a8, b8, c8)),
         np.stack([rnd, words_vec(BN_RND2)])))
@@ -2127,48 +2148,12 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
           f"({many_s:.3f} s, lane 0 the single Poseidon proof) equal JAX's "
           f"recorded proofs word for word, nonces and challenges included")
 
-    phase("28 the BN254 Fiat–Shamir provers and verify_bn254_many at 2^12 "
-          "gates")
-    ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
-    sel, cp, a, b, c = bn["circuit"]
-    provers, outs = {}, {}
-    for kind, make, verify in (
-            ("blake2b", FS.BN254FsProver, FS.verify_bn254_fs),
-            ("poseidon", FSP.BN254PoseidonFsProver,
-             FSP.verify_bn254_fs_poseidon)):
-        fs, times[f"{kind}_build_s"] = wall(lambda: make(ctx, sel, cp))
-        check(all(torch.equal(x, y) for p, q in zip(fs.vk, vk)
-                  for x, y in zip(p, q)), f"{kind} vk equals make_vk_bn254's")
-        kernels.reset_counts()
-        (out, diags), times[f"{kind}_first_proof_s"] = wall(
-            lambda: fs.prove(a, b, c, rnd))
-        launches = dict(kernels.LAUNCHES)
-        print(f"{kind}: build {times[f'{kind}_build_s']:.3f} s, first proof "
-              f"{times[f'{kind}_first_proof_s']:.3f} s, nonce {out.nonce}, "
-              f"launches {launches}")
-        check(bool(diags.all_ok()), f"{kind} 2^12 diagnostics {diags}")
-        check(bn254_fs_launches(launches), f"{kind} K3/K4 launches")
-        interactive, d = prover(a, b, c, out.challenge, rnd)
-        check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
-              f"{kind} proof equals make_prover_bn254's for its challenges")
-        ok, times[f"{kind}_verify_s"] = wall(lambda: verify(ctx, fs.vk, out))
-        check(ok, f"{kind} verify accepts")
-        provers[kind], outs[kind] = fs, out
-    blake = outs["blake2b"]
-    proofs = [bn["proof"], blake.proof, outs["poseidon"].proof,
-              blake.proof._replace(a_s=blake.proof.b_s)]
-    chs = np.stack([words_vec(BN_CH), blake.challenge,
-                    outs["poseidon"].challenge, blake.challenge])
-    flags, times["verify_many_s"] = wall(lambda: PB.verify_bn254_many(
-        ctx, vk, PB.stack_proofs(proofs), chs))
-    singles = [bn["verify_s"], times["blake2b_verify_s"],
-               times["poseidon_verify_s"]]
-    print(f"verify_bn254_many on [interactive, BLAKE2b, Poseidon, tampered]: "
-          f"{flags.tolist()} in {times['verify_many_s']:.3f} s; single "
-          f"verifies in this run {[round(x, 3) for x in singles]} s, four "
-          f"at their mean {4 * sum(singles) / len(singles):.3f} s")
-    check(flags.tolist() == [True, True, True, False],
-          "verify_bn254_many flags [T, T, T, F]")
+    phase("28 the BLAKE2b BN254 Fiat–Shamir prover at 2^12 gates")
+    prover = bn["prover"]
+    a, b, c = bn["circuit"][2:]
+    fs, ((out, _),), _, _ = bn254_fs_checks(
+        "blake2b", FS.BN254FsProver, FS.verify_bn254_fs, bn, times,
+        [(a, b, c, rnd)])
     print(f"card: {card}")
     total = collections.Counter()
     for rep in range(BN_FS_REPS):
@@ -2176,13 +2161,387 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
         for name, prove in (
                 ("make_prover_bn254",
                  lambda: prover(a, b, c, words_vec(BN_CH), r)),
-                ("blake2b", lambda: provers["blake2b"].prove(a, b, c, r))):
+                ("blake2b", lambda: fs.prove(a, b, c, r))):
             (_, d), sec = wall(prove)
             check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
             total[name] += sec
     for name, sec in total.items():
         print(f"proofs_per_s {name} {BN_FS_REPS / sec:.6f} ({BN_FS_REPS} "
               f"synchronised 2^12 proofs, in turns)")
+    for key, v in times.items():
+        print(f"{key} {v:.6f}")
+    return out
+
+
+def bn254_fs_checks(kind, make, verify, bn, times: dict, lanes):
+    """Phases 28 and 31's checks of a BN254 FS prover on the 2^12 context
+    of phases 10-12: its vk equal to make_vk_bn254's; one proof (lanes: a
+    list of one (a, b, c, rand9)) or one prove_many over the lanes, K3 and
+    K4 launches counted exactly; diagnostics; each lane's proof equal to
+    make_prover_bn254's single proof for its challenges; verify accepts
+    lane 0. Returns (prover, [(FS proof, diags)],
+    [make_prover_bn254's proof of each lane], their seconds)."""
+    ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
+    fs, times[f"{kind}_build_s"] = wall(lambda: make(ctx, *bn["circuit"][:2]))
+    check(all(torch.equal(x, y) for p, q in zip(fs.vk, vk)
+              for x, y in zip(p, q)), f"{kind} vk equals make_vk_bn254's")
+    kernels.reset_counts()
+    if len(lanes) == 1:
+        one, times[f"{kind}_first_proof_s"] = wall(
+            lambda: fs.prove(*lanes[0]))
+        outs = [one]
+    else:
+        outs, times[f"{kind}_first_proof_s"] = wall(
+            lambda: fs.prove_many(*(np.stack(x) for x in zip(*lanes))))
+    launches = dict(kernels.LAUNCHES)
+    what = "proof" if len(outs) == 1 else f"prove_many of {len(outs)}"
+    print(f"{kind}: build {times[f'{kind}_build_s']:.3f} s, first {what} "
+          f"{times[f'{kind}_first_proof_s']:.3f} s, nonces "
+          f"{[o.nonce for o, _ in outs]}, launches {launches}")
+    check(bn254_fs_launches(launches), f"{kind} K3/K4 launches")
+    singles, single_s = [], []
+    for (out, diags), (a, b, c, rnd) in zip(outs, lanes):
+        check(bool(diags.all_ok()), f"{kind} 2^12 diagnostics {diags}")
+        (interactive, d), sec = wall(lambda: prover(a, b, c, out.challenge,
+                                                    rnd))
+        check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
+              f"{kind} proof equals make_prover_bn254's for its challenges")
+        singles.append(interactive)
+        single_s.append(sec)
+    ok, times[f"{kind}_verify_s"] = wall(lambda: verify(ctx, fs.vk,
+                                                        outs[0][0]))
+    check(ok, f"{kind} verify accepts")
+    return fs, outs, singles, single_s
+
+
+N_BATCH = 1 << 12        # phase 29's gates (bench.py's bench_scaled_batched)
+BATCH = 16               # phase 29's lanes
+BATCH_BAD = 5            # the lane tampered in phase 29's verify
+BATCH_REPS = 3           # phase 29's batches and single proofs in turns
+FS_BATCH = 8             # phase 30's lanes (bench.py's bench_fs_poseidon)
+FS_BATCH_REPS = 2        # phase 30's batches and single proofs in turns
+BN_BATCH = 4             # phase 31's lanes
+
+
+def print_idle(what: str, run, call_s: float) -> None:
+    """torch.profiler's device events and device time of one call of
+    run(rep), and the device's idle share of an unprofiled call of
+    call_s seconds."""
+    n_dev, dev_us, prof_s, top = profiled_proofs(run, 1)
+    if n_dev == 0:
+        print(f"{what}: torch.profiler recorded no device events, idle "
+              "share not measured")
+        return
+    print(f"{what}: {n_dev:.0f} device events and {dev_us / 1e3:.3f} ms of "
+          f"device time a call (profiled call {prof_s:.3f} s); unprofiled "
+          f"{call_s:.3f} s, the device idle "
+          f"{100 * (1 - dev_us / 1e6 / call_s):.1f} % of it; top "
+          f"{[(k[:40], round(us / 1e3, 3)) for k, us in top[:3]]}")
+
+
+def scaled_batch_phase(dev, card: str) -> None:
+    """Phase 29: B = BATCH proofs at 2^12 gates on a fresh context and
+    window table, in bench_scaled_batched's configuration (witnesses
+    x0 = 3 + i, challenges CH, blinding 1..9 + 100 i): make_prover on the
+    batch launches K1 and K2 as often as one proof (K2 once, over the
+    B * 9 rows); every lane's diagnostics hold and every lane equals the
+    single proof of its inputs; verify_scaled_many accepts the batch as it
+    comes out and, with one lane tampered, refuses that lane alone; K2 at
+    (B * 9, L) with one all-zero lane against its plain version, with its
+    card ms and bound; proofs/s of the batch and of one proof in turns,
+    the device's idle share of each, and the batch's peak memory."""
+    phase(f"29 batched scaled proofs: B = {BATCH} at 2^12 gates")
+    ctx, setup_s = wall(lambda: PS.scaled_new(N_BATCH, device=dev))
+    Fr, Fq = ctx.Fr, ctx.Fq
+    p = Fr.p
+    sel, cp = square_chain_circuit(p, N_BATCH)[:2]
+    wits = [square_chain_circuit(p, N_BATCH, x0=3 + i)[2:]
+            for i in range(BATCH)]
+    a, b, c = (np.stack([w[k] for w in wits]) for k in range(3))
+    chs = np.tile(np.array(CH), (BATCH, 1))
+    rnds = lambda rep: (np.arange(1, 10) + 100 * np.arange(BATCH)[:, None]
+                        + 9 * rep) % p
+    prover, build_s = wall(lambda: PS.make_prover(ctx, sel, cp))
+    kernels.reset_counts()
+    (_, d), one_s = wall(lambda: prover(a[0], b[0], c[0], chs[0],
+                                        rnds(0)[0]))
+    one_launches = dict(kernels.LAUNCHES)
+    kernels.reset_counts()
+    (proof, diags), batch_s = wall(lambda: prover(a, b, c, chs, rnds(0)))
+    launches = dict(kernels.LAUNCHES)
+    print(f"scaled_new(2^12) and window table {setup_s:.3f} s, make_prover "
+          f"{build_s:.3f} s; one proof {one_s:.3f} s, launches "
+          f"{one_launches}; the batch of {BATCH} {batch_s:.3f} s, launches "
+          f"{launches}")
+    check(launches == one_launches == {"row_stages": 4, "commit_many": 1},
+          "a batch launches K1 and K2 as often as one proof (4, 1)")
+    check(tuple(diags.satisfied.shape) == (BATCH,) and bool(diags.all_ok())
+          and bool(d.all_ok()), f"every lane's diagnostics hold: {diags}")
+    t = time.perf_counter()
+    for i in range(BATCH):
+        single, sd = prover(a[i], b[i], c[i], chs[i], rnds(0)[i])
+        check(bool(sd.all_ok()) and proofs_equal(FSP._lane(proof, i),
+                                                 single),
+              f"lane {i} equals the single proof of its inputs")
+    singles_s = time.perf_counter() - t
+    vk = PS.make_vk_scaled(ctx, sel, cp)
+    flags, verify_s = wall(lambda: PS.verify_scaled_many(ctx, vk, proof,
+                                                         chs))
+    r_z = proof.r_z.clone()
+    r_z[BATCH_BAD] = (r_z[BATCH_BAD] + 1) % p
+    flags_bad, _ = wall(lambda: PS.verify_scaled_many(
+        ctx, vk, proof._replace(r_z=r_z), chs))
+    print(f"{BATCH} lanes equal their single proofs ({singles_s:.3f} s for "
+          f"the {BATCH}); verify_scaled_many {flags.tolist()} "
+          f"({verify_s:.3f} s); lane {BATCH_BAD} tampered: "
+          f"{flags_bad.tolist()}")
+    check(flags.tolist() == [True] * BATCH, "every lane verifies")
+    check(flags_bad.tolist() == [i != BATCH_BAD for i in range(BATCH)],
+          "only the tampered lane is refused")
+
+    tbl = PS.fixed_base_table(ctx)
+    L = ctx.srs.length
+    sc = np.random.default_rng(29).integers(0, p, size=(9 * BATCH, L))
+    sc[27:36] = 0                                  # lane 3: all zero
+    scalars = torch.as_tensor(sc, device=dev)
+    got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
+    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
+    err = affine_err(got, want)
+    check(err == 0 and bool(got.inf[27:36].all())
+          and not bool(got.inf[:27].any()),
+          f"K2 affine-equal at ({9 * BATCH}, {L}) with a zero lane")
+    k_ms, plain_ms, (n_ev, prof_ms) = kernel_times(
+        lambda: CM.commit_many(Fq, tbl, scalars),
+        lambda: CM.commit_many_plain(Fq, tbl, scalars))
+    bnd, terms, entries = commit_bound(tbl, scalars)
+    print(f"K2 at ({9 * BATCH}, {L}), lane 3 all zero: max_abs_err {err}; "
+          f"kernel {k_ms:.6f} ms (CUDA events, queued ahead), "
+          f"torch.profiler {n_ev:.2f} device events and "
+          f"{prof_ms if prof_ms is None else round(prof_ms, 6)} ms a call; "
+          f"plain {plain_ms:.6f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}), "
+          f"{terms} terms, {entries} distinct entries")
+
+    total = collections.Counter()
+    for rep in range(1, BATCH_REPS + 1):
+        (_, db), sec = wall(lambda: prover(a, b, c, chs, rnds(rep)))
+        total["batch"] += sec
+        (_, d1), sec = wall(lambda: prover(a[0], b[0], c[0], chs[0],
+                                           rnds(rep)[0]))
+        total["single"] += sec
+        check(bool(db.all_ok()) and bool(d1.all_ok()),
+              f"rep {rep} diagnostics")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    prover(a, b, c, chs, rnds(BATCH_REPS + 1))
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print_idle(f"batch of {BATCH}", lambda rep: prover(
+        a, b, c, chs, rnds(BATCH_REPS + 2 + rep)), total["batch"] / BATCH_REPS)
+    print_idle("one proof", lambda rep: prover(
+        a[0], b[0], c[0], chs[0], rnds(BATCH_REPS + 2 + rep)[0]),
+        total["single"] / BATCH_REPS)
+    print(f"card: {card}")
+    print(f"proofs_per_s batch of {BATCH} "
+          f"{BATCH * BATCH_REPS / total['batch']:.6f}, one proof "
+          f"{BATCH_REPS / total['single']:.6f} ({BATCH_REPS} synchronised "
+          f"calls each, in turns); the batch's peak memory above what was "
+          f"allocated before it {peak:.3f} GiB")
+
+
+def fs_batch_phase(dev, card: str, ctx, fsp) -> None:
+    """Phase 30: PoseidonFsProver.prove_many at B = FS_BATCH on the 2^16
+    context of phases 4-7 (bench_fs_poseidon's witnesses x0 = 3 + i and
+    blinding 1 + i .. 9 + i): one batched pass launching K1 and K2 as one
+    FS proof does (K1 4 and one more a retry round, K2 4); every lane's
+    diagnostics; every lane equal to a single prove() of its inputs,
+    nonce and challenge included; lane 0 verifies; batch and single
+    times in turns."""
+    phase(f"30 Poseidon Fiat–Shamir prove_many at B = {FS_BATCH}, 2^16 "
+          "gates")
+    p = ctx.Fr.p
+    wits = [square_chain_circuit(p, ctx.n, x0=3 + i)[2:]
+            for i in range(FS_BATCH)]
+    a, b, c = (np.stack([w[k] for w in wits]) for k in range(3))
+    rnds = lambda rep: (np.stack([np.arange(1 + i, 10 + i)
+                                  for i in range(FS_BATCH)]) + 50 * rep) % p
+    kernels.reset_counts()
+    many, many_s = wall(lambda: fsp.prove_many(a, b, c, rnds(0)))
+    launches = dict(kernels.LAUNCHES)
+    nonces = [o.nonce for o, _ in many]
+    print(f"prove_many B={FS_BATCH}: {many_s:.3f} s, nonces {nonces}, "
+          f"launches {launches}")
+    check(fs_launches(launches, max(nonces)),
+          "a batch launches K1 and K2 as one FS proof does")
+    t = time.perf_counter()
+    for i, (m, d) in enumerate(many):
+        s1, sd = fsp.prove(a[i], b[i], c[i], rnds(0)[i])
+        check(bool(d.all_ok()) and bool(sd.all_ok()) and m.nonce == s1.nonce
+              and np.array_equal(m.challenge, s1.challenge)
+              and proofs_equal(m.proof, s1.proof),
+              f"lane {i} equals prove() of its inputs")
+    singles_s = time.perf_counter() - t
+    ok, verify_s = wall(lambda: FSP.verify_scaled_fs_poseidon(
+        ctx, fsp.vk, many[0][0]))
+    check(ok, "lane 0 verifies")
+    total = collections.Counter()
+    for rep in range(1, FS_BATCH_REPS + 1):
+        outs, sec = wall(lambda: fsp.prove_many(a, b, c, rnds(rep)))
+        total["batch"] += sec
+        (_, d), sec = wall(lambda: fsp.prove(a[0], b[0], c[0],
+                                             rnds(rep)[0]))
+        total["single"] += sec
+        check(bool(d.all_ok()) and all(bool(dd.all_ok()) for _, dd in outs),
+              f"rep {rep} diagnostics")
+    print(f"{FS_BATCH} lanes equal their single proofs ({singles_s:.3f} s "
+          f"for the {FS_BATCH}); lane 0 verifies ({verify_s:.3f} s)")
+    # K1 at the batch's coset stack: B * 5 rows of the 2^18 transform
+    Fr, m = ctx.Fr, ctx.domain8
+    intra, _ = N._device_tables(Fr, ctx.omega8(), m, 1024, dev)
+    R = FS_BATCH * 5 * m // 1024
+    y = torch.as_tensor(np.random.default_rng(30).integers(
+        0, p, size=(R, 1024)), device=dev)
+    k1 = lambda: RS.row_stages(Fr.p, Fr.n_prime, y, intra)
+    k1_plain = lambda: RS.row_stages_plain(Fr.p, Fr.n_prime, y, intra)
+    err = int((k1() - k1_plain()).abs().max())
+    check(err == 0, f"K1 word-equal at ({R}, 1024)")
+    k_ms, plain_ms, (n_ev, prof_ms) = kernel_times(k1, k1_plain)
+    bnd = row_bound(R, 1024)
+    print(f"K1 at the batch's coset stack ({R}, 1024): max_abs_err {err}; "
+          f"kernel {k_ms:.6f} ms (CUDA events, queued ahead), "
+          f"torch.profiler {n_ev:.2f} device events a call; plain "
+          f"{plain_ms:.6f} ms; bound {bnd[0]:.6f} ms ({bnd[1]}), int64 "
+          f"floor {int64_floor_ms(2 * R * 1024):.6f} ms")
+    print_idle(f"prove_many of {FS_BATCH}", lambda rep: fsp.prove_many(
+        a, b, c, rnds(FS_BATCH_REPS + 1 + rep)),
+        total["batch"] / FS_BATCH_REPS)
+    print(f"card: {card}")
+    print(f"proofs_per_s Poseidon prove_many of {FS_BATCH} "
+          f"{FS_BATCH * FS_BATCH_REPS / total['batch']:.6f}, prove() "
+          f"{FS_BATCH_REPS / total['single']:.6f} ({FS_BATCH_REPS} "
+          f"synchronised calls each, in turns)")
+
+
+def bn_batch_kernels(dev, ctx) -> None:
+    """K3 at the B = BN_BATCH forward coset stack (B * 6 * n2 rows of n1)
+    and K4 at the batch's B * 9 commitments of the context's table (one
+    lane all zero, where K4's tiling gives each commitment one tile)
+    against their plain versions, word for word, each with its card ms,
+    plain ms and bound."""
+    Fr = BigMontField(BN254_FR)
+    m = 4 * N_BN
+    n1, n2 = BN._split(m)
+    w = pow(BN254_FR.root_of_unity(m), n2, Fr.p)
+    R = BN_BATCH * 6 * n2
+    vals = np.random.default_rng(31).integers(0, 1 << 16, size=(R, n1, 16))
+    vals[..., 15] &= 0x0FFF
+    y = torch.as_tensor(vals, device=dev)
+    tw = torch.as_tensor(BN._row_tables(Fr, w, n1), device=dev)
+    k3 = lambda: BN.big_row_pass(Fr, y, w, True)
+    k3_plain = lambda: BN.big_row_pass_plain(Fr, y, tw, True)
+    err = int((k3() - k3_plain()).abs().max())
+    check(err == 0, f"K3 word-equal at ({R}, {n1})")
+    k_ms, plain_ms, (n_ev, _) = kernel_times(k3, k3_plain)
+    bnd = big_row_bound(R, n1, False)
+    print(f"K3 at the batch's forward coset stack ({R}, {n1}): max_abs_err "
+          f"{err}; kernel {k_ms:.6f} ms (CUDA events, queued ahead), "
+          f"torch.profiler {n_ev:.2f} device events a call; plain "
+          f"{plain_ms:.6f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
+    Fq = ctx.Fq
+    tbl, packed = PB.bn254_fixed_base_table(ctx), PB.bn254_packed_table(ctx)
+    L = ctx.srs.length
+    sc = np.random.default_rng(31).integers(0, 1 << 16,
+                                            size=(9 * BN_BATCH, L, 16))
+    sc[..., 15] &= 0x0FFF
+    sc[9:18] = 0                                   # lane 1: all zero
+    scalars = torch.as_tensor(sc, device=dev)
+    k4 = lambda: BK.big_commit_many(Fq, tbl, scalars, packed)
+    got = BC.big_to_affine(Fq, k4())
+    # the plain version is launch-bound (seconds): one synchronised call,
+    # timed on the host clock, is both its check and its time
+    plain, plain_s = wall(lambda: BK.big_commit_many_plain(Fq, tbl,
+                                                           scalars))
+    err = affine_err(got, BC.big_to_affine(Fq, plain))
+    inf = got[2]
+    check(err == 0 and bool(inf[9:18].all()) and not bool(inf[:9].any())
+          and not bool(inf[18:].any()),
+          f"K4 affine-equal at ({9 * BN_BATCH}, {L}), the zero lane's "
+          "commitments alone at infinity")
+    k_ms = cuda_ms(k4, reps=50, queue_ahead=True)
+    n_ev, _ = device_ms(k4)
+    bnd, terms, entries = big_commit_bound(tbl, scalars)
+    print(f"K4 at the batch's ({9 * BN_BATCH}, {L}), lane 1 all zero: "
+          f"max_abs_err {err}; kernel {k_ms:.6f} ms (CUDA events, queued "
+          f"ahead), torch.profiler {n_ev:.2f} device events a call; plain "
+          f"{plain_s * 1e3:.6f} ms (one synchronised call); bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]}), {terms} terms, {entries} distinct "
+          "entries")
+
+
+def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
+    """Phase 31 on the 2^12 context, circuit, prover and vk of phases
+    10-12, lanes the witnesses of bn254_mul_circuit seeds 11 + i with
+    bench.py's blinding variants 17 + 31 i + j: BN254PoseidonFsProver.
+    prove_many at B = BN_BATCH (K3 4, K4 4 a batch; prove() is
+    prove_many of one lane), every lane equal to make_prover_bn254's
+    single proof for its derived challenges, verify_bn254_fs_poseidon of
+    lane 0; make_prover_bn254 on the batch with those challenges (K3 4,
+    K4 1) equal lane by lane; K3 and K4 at the batch's shapes against
+    their plain versions (bn_batch_kernels); verify_bn254_many on
+    [phase 12's proof, phase 28's BLAKE2b proof, the B lanes, the BLAKE2b
+    proof with [a] replaced] -> [T, ..., T, F], each lane's challenges
+    replayed on the host first; batch and single times."""
+    phase(f"31 BN254 batches at 2^12 gates: Poseidon prove_many and "
+          f"make_prover_bn254 at B = {BN_BATCH}, verify_bn254_many")
+    ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
+    wits = [bn254_mul_circuit(N_BN, seed=11 + i)[2:]
+            for i in range(BN_BATCH)]
+    rnds = [words_vec([17 + 31 * i + j for j in range(9)])
+            for i in range(BN_BATCH)]
+    lanes = [(*w, r) for w, r in zip(wits, rnds)]
+    times = {}
+    fsp, many, singles, single_s = bn254_fs_checks(
+        "poseidon", FSP.BN254PoseidonFsProver, FSP.verify_bn254_fs_poseidon,
+        bn, times, lanes)
+    # every lane through verify_bn254_many: the host replay of its
+    # transcript, then the one batched verify below
+    t = time.perf_counter()
+    for out, _ in many:
+        check(np.array_equal(FSP.derive_bn254_challenges_host(
+            ctx, list(fsp.vk), out.proof, out.nonce), out.challenge),
+            "each lane's challenges equal the host replay's")
+    times["poseidon_replays_s"] = time.perf_counter() - t
+    a, b, c, rnd = (np.stack(x) for x in zip(*lanes))
+    chs = np.stack([o.challenge for o, _ in many])
+    kernels.reset_counts()
+    (proof, diags), batch_s = wall(lambda: prover(a, b, c, chs, rnd))
+    launches = dict(kernels.LAUNCHES)
+    print(f"make_prover_bn254 on the batch: {batch_s:.3f} s, launches "
+          f"{launches}; its {BN_BATCH} single proofs "
+          f"{[round(x, 3) for x in single_s]} s")
+    check(launches == {"big_row": 4, "big_commit": 1},
+          "a batch launches K3 and K4 as one proof does (4, 1)")
+    check(bool(diags.all_ok()) and all(
+        proofs_equal(FSP._lane(proof, i), one)
+        for i, one in enumerate(singles)),
+        "every lane of the batch equals its single proof")
+    bn_batch_kernels(dev, ctx)
+    proofs = ([bn["proof"], blake.proof] + [o.proof for o, _ in many]
+              + [blake.proof._replace(a_s=blake.proof.b_s)])
+    v_chs = np.stack([words_vec(BN_CH), blake.challenge, *chs,
+                      blake.challenge])
+    flags, times["verify_many_s"] = wall(lambda: PB.verify_bn254_many(
+        ctx, vk, PB.stack_proofs(proofs), v_chs))
+    want = [True] * (2 + BN_BATCH) + [False]
+    print(f"verify_bn254_many on [interactive, BLAKE2b, {BN_BATCH} Poseidon "
+          f"lanes with their replayed challenges, tampered]: "
+          f"{flags.tolist()} in {times['verify_many_s']:.3f} s")
+    check(flags.tolist() == want, f"verify_bn254_many flags {want}")
+    print(f"card: {card}")
+    print(f"proofs_per_s BN254 Poseidon prove_many of {BN_BATCH} "
+          f"{BN_BATCH / times['poseidon_first_proof_s']:.6f}; "
+          f"make_prover_bn254 batch of {BN_BATCH} {BN_BATCH / batch_s:.6f}, "
+          f"single {len(single_s) / sum(single_s):.6f} (synchronised, in "
+          "this order)")
     for key, v in times.items():
         print(f"{key} {v:.6f}")
 
@@ -2605,8 +2964,11 @@ def main() -> None:
     dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                                prover, vk)
     toy_phases(dev, card)
-    fs_phases(dev, card, ctx, (sel, cp, a, b, c), proof, prover, vk)
-    bn254_fs_phases(dev, card, bn)
+    fsp = fs_phases(dev, card, ctx, (sel, cp, a, b, c), proof, prover, vk)
+    blake = bn254_fs_phases(dev, card, bn)
+    scaled_batch_phase(dev, card)
+    fs_batch_phase(dev, card, ctx, fsp)
+    bn254_batch_phase(dev, card, bn, blake)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries

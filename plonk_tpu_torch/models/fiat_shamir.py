@@ -150,8 +150,10 @@ class FsProof(NamedTuple):
 
 
 def _points(cms: G1) -> list:
-    """A G1 batch as a list of points (0-d tensors, on its device)."""
-    return [G1(cms.x[i], cms.y[i], cms.inf[i]) for i in range(len(cms.x))]
+    """A (..., k) G1 batch as a list of k points of shape (...), on its
+    device."""
+    return [G1(cms.x[..., i], cms.y[..., i], cms.inf[..., i])
+            for i in range(cms.x.shape[-1])]
 
 
 class ScaledFsProver:
@@ -320,11 +322,12 @@ class _BN254Stages:
         self._pre = PB.precompute_bn254(ctx, selectors, copies, self._prims)
 
     def _commit(self, polys) -> list:
-        """One commit_many of the polynomials -> standard-form points."""
+        """One commit_many of the polynomials -> standard-form points (of
+        the polynomials' batch shape)."""
         Fq = self.ctx.Fq
         cms = self._prims.commit_many(polys)
         xs, ys = Fq.decode(cms.x), Fq.decode(cms.y)
-        return [PB.BigG1Affine(xs[i], ys[i], cms.inf[i])
+        return [PB.BigG1Affine(xs[..., i, :], ys[..., i, :], cms.inf[..., i])
                 for i in range(len(polys))]
 
     def _proof(self, pts, q5) -> PB.BN254Proof:

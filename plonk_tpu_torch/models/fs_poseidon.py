@@ -28,6 +28,12 @@ The BN254 prover runs the same layout over the 16-limb sponge at t = 3,
 capacity 1 (rate 2): a G1 coordinate lives in Fq, not the sponge's Fr,
 so each absorbs as its two 128-bit halves (each below r), then the
 infinity flag; evaluations are Fr elements and absorb as they are.
+
+Both provers' `prove_many` run B proofs as one batched pass, as the JAX
+package's vmapped run does: every stage, commitment and sponge call takes
+the whole batch, and the nonce retry is one host loop over nonces in
+which the lanes whose denominator was admissible keep their attempt while
+the rest retry (`_retry_nonces`).
 """
 from __future__ import annotations
 
@@ -91,6 +97,71 @@ def _device_point_elements(F, pts) -> list:
     return out
 
 
+def _lane_where(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor
+                ) -> torch.Tensor:
+    """`new` on the lanes of `mask` (a bool tensor of the batch shape),
+    `old` on the others."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.dim()
+                                                         - mask.dim())),
+                       new, old)
+
+
+def _retry_nonces(attempt):
+    """The nonce retry of every lane at once. attempt(nonce) -> (state,
+    beta_std, gamma_std, z_x, den_ok) for all lanes; the lanes whose
+    denominator was admissible keep their attempt while the others take
+    the next nonce's, as JAX's while loop does under vmap. One host read
+    a nonce. Returns ((state, beta_std, gamma_std, z_x), the lanes' nonces
+    as a numpy array of the batch shape); RuntimeError when a lane finds
+    no admissible beta/gamma up to MAX_NONCE."""
+    kept = None
+    for nonce in range(MAX_NONCE + 1):
+        new = attempt(nonce)
+        if kept is None:
+            kept = new
+            nonces = np.zeros(tuple(new[-1].shape), dtype=np.int64)
+        else:
+            kept = tuple(_lane_where(retry, a, b) for a, b in zip(new, kept))
+            nonces = np.where(retry_h, nonce, nonces)
+        retry = ~kept[-1]
+        retry_h = retry.cpu().numpy()
+        if not retry_h.any():
+            return kept[:-1], nonces
+    raise RuntimeError(
+        "no admissible beta/gamma in %d retries" % MAX_NONCE)
+
+
+def _one_lane(device, *xs) -> list:
+    """One proof's inputs as a batch of one (None stays None)."""
+    return [None if x is None else PS._as_words(x, device)[None]
+            for x in xs]
+
+
+def _check_batch(a_w, rank: int, shape: str) -> None:
+    """prove_many's witness columns must carry a leading batch axis;
+    checked before any stage runs."""
+    if np.ndim(a_w) != rank:
+        raise ValueError("prove_many takes a leading batch axis: %s "
+                         "witness columns" % shape)
+
+
+def _split_lanes(batch) -> list:
+    """(proof, nonces, challenges, diags) of a batch -> the list of
+    (PoseidonFsProof, diags) of its lanes."""
+    proof, nonces, ch, diags = batch
+    return [(PoseidonFsProof(proof=_lane(proof, i), nonce=int(nonces[i]),
+                             challenge=ch[i]), _lane(diags, i))
+            for i in range(len(nonces))]
+
+
+def _lane(t, i: int):
+    """Lane i of a batched proof or diagnostics (NamedTuples of tensors
+    with a leading batch axis)."""
+    if isinstance(t, tuple):
+        return type(t)(*(_lane(f, i) for f in t))
+    return t[i]
+
+
 class PoseidonFsProof(NamedTuple):
     proof: object           # models.plonk.Proof (scaled points + evals)
     nonce: int
@@ -137,40 +208,42 @@ class PoseidonFsProver:
         return PO.squeeze(self.ctx.Fr, self.pos, s,
                           pow_n_not_one=pow_n_not_one)
 
-    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
-        """Returns (PoseidonFsProof, ScaledDiagnostics); RuntimeError when
-        no nonce up to MAX_NONCE gives an admissible beta/gamma."""
+    def _prove(self, a_w, b_w, c_w, rand9, public_inputs):
+        """The B proofs of (B, n) inputs in one pass: each stage,
+        commitment and sponge call runs once for the whole batch. Returns
+        (Proof, nonces (B,), challenges (B, 5), ScaledDiagnostics), the
+        nonces and challenges as numpy arrays."""
         ctx, prims = self.ctx, self._prims
         Fr = ctx.Fr
-        commit = lambda polys: prims.commit_many(ctx, polys)
+        commit = lambda polys: _points(prims.commit_many(ctx, polys))
         st = PS._stage_prep(ctx, a_w, b_w, c_w, rand9, prims, self._pre,
                             public_inputs)
-        pt1 = _points(commit([st["a_x"], st["b_x"], st["c_x"]]))
+        pt1 = commit([st["a_x"], st["b_x"], st["c_x"]])
         c1_elems = _device_point_elements(Fr, pt1)
         pid = (self._zero_pi_digest if public_inputs is None else
                PO.tree_digest(Fr, self.pos,
                               PS._as_words(public_inputs, ctx.device)))
+        state0 = self._state0.expand(st["a_v"].shape[:-1]
+                                     + self._state0.shape)
 
-        for nonce in range(MAX_NONCE + 1):
-            s = self._absorb(self._state0, [pid, nonce])
+        def attempt(nonce):
+            s = self._absorb(state0, [pid, nonce])
             s = self._absorb(s, c1_elems)
             beta_std, s = self._squeeze(s)
             gamma_std, s = self._squeeze(s)
-            beta, gamma = Fr.encode(beta_std), Fr.encode(gamma_std)
-            z_x, den_ok = PS._stage_grand_product(ctx, st, beta, gamma,
-                                                  prims)
-            if bool(den_ok):
-                break
-        else:
-            raise RuntimeError(
-                "no admissible beta/gamma in %d retries" % MAX_NONCE)
+            z_x, den_ok = PS._stage_grand_product(
+                ctx, st, Fr.encode(beta_std), Fr.encode(gamma_std), prims)
+            return s, beta_std, gamma_std, z_x, den_ok
 
-        (z_pt,) = _points(commit([z_x]))
+        (s, beta_std, gamma_std, z_x), nonces = _retry_nonces(attempt)
+        beta, gamma = Fr.encode(beta_std), Fr.encode(gamma_std)
+
+        (z_pt,) = commit([z_x])
         s = self._absorb(s, _device_point_elements(Fr, [z_pt]))
         alpha_std, s = self._squeeze(s)
         alpha = Fr.encode(alpha_std)
         q3 = PS._stage_quotient(ctx, st, z_x, alpha, beta, gamma, prims)
-        pt3 = _points(commit([q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"]]))
+        pt3 = commit([q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"]])
         s = self._absorb(s, _device_point_elements(Fr, pt3))
         z_std, s = self._squeeze(s, pow_n_not_one=ctx.n)
         zc = Fr.encode(z_std)
@@ -185,8 +258,9 @@ class PoseidonFsProver:
         v_std, s = self._squeeze(s)
         q5 = PS._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
                                 Fr.encode(v_std))
-        pt4 = _points(commit([q5["w_z_x_quo"], q5["w_z_omega_x"]]))
-        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std])
+        pt4 = commit([q5["w_z_x_quo"], q5["w_z_omega_x"]])
+        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std],
+                         dim=-1)
 
         proof = Proof(
             a_s=pt1[0], b_s=pt1[1], c_s=pt1[2], z_s=z_pt,
@@ -196,21 +270,24 @@ class PoseidonFsProver:
         diags = PS.ScaledDiagnostics(
             satisfied=st["satisfied"], t_tail_zero=q3["t_tail_zero"],
             w_z_rem_zero=q5["rem1"] == 0, w_zw_rem_zero=q5["rem2"] == 0)
-        return (PoseidonFsProof(proof=proof, nonce=nonce,
-                                challenge=_host(ch).astype(np.uint32)),
-                diags)
+        return proof, nonces, _host(ch).astype(np.uint32), diags
+
+    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """One proof, as prove_many of one lane. Returns (PoseidonFsProof,
+        ScaledDiagnostics); RuntimeError when no nonce up to MAX_NONCE
+        gives an admissible beta/gamma."""
+        return self.prove_many(*_one_lane(self.ctx.device, a_w, b_w, c_w,
+                                          rand9, public_inputs))[0]
 
     def prove_many(self, a_w, b_w, c_w, rand9, public_inputs=None):
-        """B proofs: the inputs carry a leading batch axis; returns a list
-        of (PoseidonFsProof, diags), lane i equal to prove() of lane i.
-        The stages take one proof (batched scaled proving is ROADMAP queue
-        1 item 10), so the lanes are proved one after another, where the
-        JAX package runs them as one vmapped call."""
-        B = len(a_w)
-        return [self.prove(a_w[i], b_w[i], c_w[i], rand9[i],
-                           None if public_inputs is None
-                           else public_inputs[i])
-                for i in range(B)]
+        """B proofs in one batched pass: (B, n) witness columns, (B, 9)
+        blinding and (B, n) public inputs or None; returns a list of
+        (PoseidonFsProof, diags), lane i equal to prove() of lane i (its
+        own nonce included). RuntimeError when any lane exhausts
+        MAX_NONCE, as the JAX package's prove_many raises."""
+        _check_batch(a_w, 2, "(B, n)")
+        return _split_lanes(self._prove(a_w, b_w, c_w, rand9,
+                                        public_inputs))
 
 
 def derive_challenges_host(ctx, vk_points, proof, nonce: int,
@@ -290,14 +367,14 @@ def _bn254_preamble_elements(ctx, vk_points) -> list:
 
 
 def _bn254_device_point_elements(F, pts) -> list:
-    """Standard-form points (words on the device) -> Montgomery (16,)
+    """Standard-form points (words on the device) -> Montgomery (..., 16)
     absorb list, chunked as _bn254_host_point_elements: each coordinate's
     low and high 8 words, then the flag, encoded in one product."""
     rows = []
     for pt in pts:
         for w in (pt.x, pt.y):
-            rows += [TF.pad(w[:8], (0, 8)), TF.pad(w[8:], (0, 8))]
-        rows.append(TF.pad(pt.inf.to(torch.int64)[None], (0, 15)))
+            rows += [TF.pad(w[..., :8], (0, 8)), TF.pad(w[..., 8:], (0, 8))]
+        rows.append(TF.pad(pt.inf.to(torch.int64)[..., None], (0, 15)))
     return list(F.encode(torch.stack(rows)).unbind(0))
 
 
@@ -337,9 +414,10 @@ class BN254PoseidonFsProver(_BN254Stages):
         return PO.big_squeeze(self.ctx.Fr, self.pos, s,
                               pow_n_not_one=pow_n_not_one)
 
-    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
-        """Returns (PoseidonFsProof, BN254Diagnostics); RuntimeError when
-        no nonce up to MAX_NONCE gives an admissible beta/gamma."""
+    def _prove(self, a_w, b_w, c_w, rand9, public_inputs):
+        """The B proofs of (B, n, 16) inputs in one pass. Returns
+        (BN254Proof, nonces (B,), challenges (B, 5, 16), BN254Diagnostics),
+        the nonces and challenge words as numpy arrays."""
         ctx, prims = self.ctx, self._prims
         Fr = ctx.Fr
         st = PB._stage_prep(ctx, a_w, b_w, c_w, rand9, prims, self._pre,
@@ -349,20 +427,20 @@ class BN254PoseidonFsProver(_BN254Stages):
         pid = (self._zero_pi_digest if public_inputs is None else
                PO.big_tree_digest(Fr, self.pos,
                                   PB._as_words(public_inputs, ctx.device)))
+        state0 = self._state0.expand(st["a_v"].shape[:-2]
+                                     + self._state0.shape)
 
-        for nonce in range(MAX_NONCE + 1):
-            s = self._absorb(self._state0, [pid, nonce])
+        def attempt(nonce):
+            s = self._absorb(state0, [pid, nonce])
             s = self._absorb(s, c1_elems)
             beta_std, s = self._squeeze(s)
             gamma_std, s = self._squeeze(s)
-            beta, gamma = Fr.encode(torch.stack([beta_std, gamma_std]))
-            z_x, den_ok = PB._stage_grand_product(ctx, st, beta, gamma,
-                                                  prims)
-            if bool(den_ok):
-                break
-        else:
-            raise RuntimeError(
-                "no admissible beta/gamma in %d retries" % MAX_NONCE)
+            z_x, den_ok = PB._stage_grand_product(
+                ctx, st, Fr.encode(beta_std), Fr.encode(gamma_std), prims)
+            return s, beta_std, gamma_std, z_x, den_ok
+
+        (s, beta_std, gamma_std, z_x), nonces = _retry_nonces(attempt)
+        beta, gamma = Fr.encode(beta_std), Fr.encode(gamma_std)
 
         (z_pt,) = self._commit([z_x])
         s = self._absorb(s, _bn254_device_point_elements(Fr, [z_pt]))
@@ -384,26 +462,31 @@ class BN254PoseidonFsProver(_BN254Stages):
         q5 = PB._stage_openings(ctx, st, q3, z_x, alpha, beta, gamma, zc,
                                 Fr.encode(v_std))
         pt4 = self._commit([q5["w_z_x_quo"], q5["w_z_omega_x"]])
-        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std])
+        ch = torch.stack([alpha_std, beta_std, gamma_std, z_std, v_std],
+                         dim=-2)
 
         proof = self._proof(pt1 + [z_pt] + pt3 + pt4, q5)
         diags = PB.BN254Diagnostics(
             satisfied=st["satisfied"], t_tail_zero=q3["t_tail_zero"],
             w_z_rem_zero=q5["rem1"], w_zw_rem_zero=q5["rem2"])
-        return (PoseidonFsProof(proof=proof, nonce=nonce,
-                                challenge=_host(ch).astype(np.uint32)),
-                diags)
+        return proof, nonces, _host(ch).astype(np.uint32), diags
+
+    def prove(self, a_w, b_w, c_w, rand9, public_inputs=None):
+        """One proof, as prove_many of one lane. Returns (PoseidonFsProof,
+        BN254Diagnostics); RuntimeError when no nonce up to MAX_NONCE
+        gives an admissible beta/gamma."""
+        return self.prove_many(*_one_lane(self.ctx.device, a_w, b_w, c_w,
+                                          rand9, public_inputs))[0]
 
     def prove_many(self, a_w, b_w, c_w, rand9, public_inputs=None):
-        """B proofs: the inputs carry a leading batch axis; returns a list
-        of (PoseidonFsProof, diags), lane i equal to prove() of lane i.
-        The stages take one proof (batched BN254 proving is ROADMAP queue
-        1 item 10), so the lanes are proved one after another, where the
-        JAX package runs them as one vmapped call."""
-        return [self.prove(a_w[i], b_w[i], c_w[i], rand9[i],
-                           None if public_inputs is None
-                           else public_inputs[i])
-                for i in range(len(a_w))]
+        """B proofs in one batched pass: (B, n, 16) witness columns,
+        (B, 9, 16) blinding and (B, n, 16) public inputs or None; returns a
+        list of (PoseidonFsProof, diags), lane i equal to prove() of lane
+        i (its own nonce included). RuntimeError when any lane exhausts
+        MAX_NONCE."""
+        _check_batch(a_w, 3, "(B, n, 16)")
+        return _split_lanes(self._prove(a_w, b_w, c_w, rand9,
+                                        public_inputs))
 
 
 def derive_bn254_challenges_host(ctx, vk_points, proof, nonce: int,

@@ -11,9 +11,16 @@ pairings over the Fq12 tower (`ops/bigpairing.py`).
 Shapes: a field element is a (16,) tensor of 16-bit words; a polynomial
 is (n, 16) with the coefficient axis at -2. Witnesses, challenges and
 blinding scalars enter as standard-form word arrays; everything between
-is Montgomery form; the proof leaves in standard form. The device of the
-context's SRS is where a proof runs. The Fiat-Shamir provers over this
-module's stages are in models/fiat_shamir.py and models/fs_poseidon.py.
+is Montgomery form; the proof leaves in standard form. The prover takes
+a leading batch axis, with the semantics of `jax.vmap` over the JAX
+package's prover: (B, n, 16) witness columns with (B, 5, 16) challenges
+and (B, 9, 16) blinding give B proofs in stack_proofs' layout and (B,)
+diagnostics. A per-lane scalar (B, 16) meets a (B, L, 16) polynomial as
+`_col(s)`, (B, 1, 16); the circuit-fixed tables stay unbatched. The batch
+folds into the rows of K3 and K4, so a batch launches them as often as
+one proof does. The device of the context's SRS is where a proof runs.
+The Fiat-Shamir provers over this module's stages are in
+models/fiat_shamir.py and models/fs_poseidon.py.
 Left for later (ROADMAP): the SRS and table disk caches, GLV and
 Pippenger commitments, the sharded prover.
 """
@@ -91,6 +98,8 @@ SCALAR_FIELDS = BN254Proof._fields[9:]
 
 
 class BN254Diagnostics(NamedTuple):
+    """One flag per proof: 0-d for one proof, (B,) for a batch; all_ok
+    reduces over every lane."""
     satisfied: torch.Tensor
     t_tail_zero: torch.Tensor
     w_z_rem_zero: torch.Tensor
@@ -105,8 +114,9 @@ class BN254Prims(NamedTuple):
     """The prover's heavy steps. intt_n: natural order in and out;
     ntt4n may leave any fixed layout that intt4n consumes and perm4n
     aligns position-indexed tables to; grand_product: (F, fractions
-    (n-1, 16)) -> (n, 16) = [1, prefix products...]; commit_many:
-    coefficient list -> BigG1Affine batch (Montgomery words)."""
+    (..., n-1, 16)) -> (..., n, 16) = [1, prefix products...];
+    commit_many: list of k coefficient tensors (..., L_i, 16) ->
+    BigG1Affine batch of shape (..., k) (Montgomery words)."""
     intt_n: object
     ntt4n: object
     intt4n: object
@@ -162,6 +172,12 @@ class BN254Context:
 
 def _words_std(v: int, n_words: int = FR_WORDS) -> list:
     return [(v >> (16 * k)) & 0xFFFF for k in range(n_words)]
+
+
+def _col(s: torch.Tensor) -> torch.Tensor:
+    """A per-lane scalar (..., 16) as (..., 1, 16), which broadcasts
+    against the lanes' (..., L, 16) vectors."""
+    return s[..., None, :]
 
 
 def _as_words(x, device) -> torch.Tensor:
@@ -287,17 +303,24 @@ def bn254_packed_table(ctx: BN254Context) -> torch.Tensor | None:
 
 def bn254_table_commit(ctx: BN254Context):
     """commit_many through the context's window table (built at the first
-    commitment): coefficient list -> BigG1Affine batch (Montgomery words),
-    one K4 launch on the card."""
+    commitment): list of k coefficient tensors (..., L_i, 16) ->
+    BigG1Affine batch of shape (..., k) (Montgomery words), one K4 launch
+    over all prod(...) * k commitments on the card."""
     Fr, Fq = ctx.Fr, ctx.Fq
     L = ctx.srs.length
 
     def commit(coeff_list) -> BigG1Affine:
-        padded = torch.stack([BPol.pad_to(c, L)[..., :L, :]
-                              for c in coeff_list])
+        rows = BPol.stack_rows([BPol.pad_to(c, L)[..., :L, :]
+                                for c in coeff_list])
+        batch = rows.shape[:-2]
         out = big_commit_many(Fq, bn254_fixed_base_table(ctx),
-                              Fr.decode(padded), bn254_packed_table(ctx))
-        return BigG1Affine(*big_to_affine(Fq, out))
+                              Fr.decode(rows.reshape((-1,)
+                                                     + rows.shape[-2:])),
+                              bn254_packed_table(ctx))
+        x, y, inf = big_to_affine(Fq, out)
+        return BigG1Affine(x.reshape(batch + x.shape[-1:]),
+                           y.reshape(batch + y.shape[-1:]),
+                           inf.reshape(batch))
 
     return commit
 
@@ -309,7 +332,8 @@ def _local_prims(ctx: BN254Context) -> BN254Prims:
         ntt4n=lambda F, x: big_fused_ntt(F, x, ctx.omega4),
         intt4n=lambda F, x: big_fused_intt(F, x, ctx.omega4),
         grand_product=lambda F, fr: torch.cat(
-            [F.ones((1,), fr.device), BPol.prefix_prod_chunked(F, fr)]),
+            [F.ones(fr.shape[:-2] + (1,), fr.device),
+             BPol.prefix_prod_chunked(F, fr)], dim=-2),
         commit_many=bn254_table_commit(ctx),
         perm4n=lambda tbl: tbl[torch.as_tensor(scrambled_perm(len(tbl)),
                                                device=dev)])
@@ -351,7 +375,8 @@ def precompute_bn254(ctx: BN254Context, selectors, copies,
 def _stage_prep(ctx: BN254Context, a_w, b_w, c_w, rand9, prims, pre,
                 public_inputs=None):
     """Encode, witness check, the 4 witness interpolations, round-1
-    blinding."""
+    blinding. Witness columns (..., n, 16), rand9 (..., 9, 16), public
+    inputs (..., n, 16) or None."""
     Fr = ctx.Fr
     n = ctx.n
     dev = ctx.device
@@ -364,17 +389,20 @@ def _stage_prep(ctx: BN254Context, a_w, b_w, c_w, rand9, prims, pre,
                                         (q_o_v, c_v), (a_v, b_v)])
     lhs = Fr.add(Fr.add(Fr.add(ql_a, qr_b), pi_v),
                  Fr.add(qo_c, Fr.add(Fr.mont_mul(q_m_v, ab), q_c_v)))
-    satisfied = (lhs == 0).all()
+    satisfied = (lhs == 0).flatten(-2).all(-1)
 
-    polys = prims.intt_n(Fr, torch.stack([a_v, b_v, c_v, pi_v]))
+    # the rows of each lane stacked at -3: (..., 4, n, 16)
+    polys = prims.intt_n(Fr, BPol.stack_rows([a_v, b_v, c_v, pi_v]))
 
+    # round 1: (b_hi x + b_lo)(x^n - 1), written per lane
     def blind2(b_hi, b_lo, f):
-        out = Fr.zeros((n + 2,), dev)
-        out[0], out[1] = Fr.neg(b_lo), Fr.neg(b_hi)
-        out[n], out[n + 1] = b_lo, b_hi
+        out = Fr.zeros(b_hi.shape[:-1] + (n + 2,), dev)
+        out[..., 0, :], out[..., 1, :] = Fr.neg(b_lo), Fr.neg(b_hi)
+        out[..., n, :], out[..., n + 1, :] = b_lo, b_hi
         return BPol.padd(Fr, out, f)
 
     cx = pre["circ_x"]
+    r = lambda i: rnd[..., i, :]
     return dict(
         rnd=rnd, a_v=a_v, b_v=b_v, c_v=c_v, satisfied=satisfied,
         sigma_1=pre["sigma_v"][0], sigma_2=pre["sigma_v"][1],
@@ -382,23 +410,29 @@ def _stage_prep(ctx: BN254Context, a_w, b_w, c_w, rand9, prims, pre,
         q_o_x=cx[0], q_m_x=cx[1], q_l_x=cx[2], q_r_x=cx[3], q_c_x=cx[4],
         s_sigma_1=cx[5], s_sigma_2=cx[6], s_sigma_3=cx[7],
         l_1_x=cx[8], circ_e=pre["circ_e"],
-        a_x=blind2(rnd[0], rnd[1], polys[0]),
-        b_x=blind2(rnd[2], rnd[3], polys[1]),
-        c_x=blind2(rnd[4], rnd[5], polys[2]),
-        pi_x=polys[3], h_mont=pre["h_mont"])
+        a_x=blind2(r(0), r(1), polys[..., 0, :, :]),
+        b_x=blind2(r(2), r(3), polys[..., 1, :, :]),
+        c_x=blind2(r(4), r(5), polys[..., 2, :, :]),
+        pi_x=polys[..., 3, :, :], h_mont=pre["h_mont"])
 
 
 def _stage_grand_product(ctx: BN254Context, st, beta, gamma, prims):
+    """Round 2: permutation fractions, prefix product, blinding. beta and
+    gamma are per-lane scalars (..., 16). Returns (z_x, denominator_ok),
+    one flag per lane."""
     Fr = ctx.Fr
     n = ctx.n
+    beta, gamma = _col(beta), _col(gamma)
     w_i = st["h_mont"][:n - 1]
-    aa, bb, cc = st["a_v"][:n - 1], st["b_v"][:n - 1], st["c_v"][:n - 1]
+    aa, bb, cc = (st[k][..., :n - 1, :] for k in ("a_v", "b_v", "c_v"))
     bw = Fr.mont_mul(beta, w_i)
     k1bw, k2bw, bs1, bs2, bs3 = Fr.mul_many([
         (Fr.const(ctx.k1), bw), (Fr.const(ctx.k2), bw),
         (beta, st["sigma_1"][:n - 1]), (beta, st["sigma_2"][:n - 1]),
         (beta, st["sigma_3"][:n - 1])])
-    lin = Fr.add(torch.stack([aa, bb, cc, aa, bb, cc]),
+    shape = torch.broadcast_shapes(aa.shape, bw.shape)
+    lin = Fr.add(torch.stack([t.expand(shape)
+                              for t in (aa, bb, cc, aa, bb, cc)]),
                  Fr.add(torch.stack([bw, k1bw, k2bw, bs1, bs2, bs3]),
                         gamma))
     pair = Fr.mont_mul(lin[[0, 3]], lin[[1, 4]])
@@ -406,28 +440,32 @@ def _stage_grand_product(ctx: BN254Context, st, beta, gamma, prims):
     # a vanishing factor makes the later t-division fail, as the
     # reference's remainder assert does (src/plonk.h:506-510); the FS
     # provers retry on a fresh nonce when a product vanishes
-    denominator_ok = ((numer != 0).any(-1).all()
-                      & (denom != 0).any(-1).all())
+    denominator_ok = ((numer != 0).any(-1).all(-1)
+                      & (denom != 0).any(-1).all(-1))
     fractions = Fr.mont_mul(denom, BPol.batch_inv(Fr, numer))
     acc_x = prims.intt_n(Fr, prims.grand_product(Fr, fractions))
     rnd = st["rnd"]
-    out = Fr.zeros((n + 3,), ctx.device)
-    out[0], out[1], out[2] = Fr.neg(rnd[8]), Fr.neg(rnd[7]), Fr.neg(rnd[6])
-    out[n], out[n + 1], out[n + 2] = rnd[8], rnd[7], rnd[6]
+    out = Fr.zeros(rnd.shape[:-2] + (n + 3,), ctx.device)
+    r = lambda i: rnd[..., i, :]
+    out[..., 0, :], out[..., 1, :], out[..., 2, :] = (
+        Fr.neg(r(8)), Fr.neg(r(7)), Fr.neg(r(6)))
+    out[..., n, :], out[..., n + 1, :], out[..., n + 2, :] = r(8), r(7), r(6)
     return BPol.padd(Fr, out, acc_x), denominator_ok
 
 
 def _stage_quotient(ctx: BN254Context, st, z_x, alpha, beta, gamma,
                     prims):
+    """Round 3: the quotient on the 4n coset (K3 in both transforms),
+    split in three."""
     Fr = ctx.Fr
     n, m = ctx.n, 4 * ctx.n
     tabs = _tables(ctx)
+    alpha, beta, gamma = _col(alpha), _col(beta), _col(gamma)
     z_omega_x = Fr.mont_mul(z_x, tabs["omega_pows"][:z_x.shape[-2]])
-    stack6 = torch.stack([BPol.pad_to(c, m) for c in
-                          (st["a_x"], st["b_x"], st["c_x"], z_x, z_omega_x,
-                           st["pi_x"])])
+    stack6 = BPol.stack_rows([BPol.pad_to(c, m) for c in (
+        st["a_x"], st["b_x"], st["c_x"], z_x, z_omega_x, st["pi_x"])])
     evs = prims.ntt4n(Fr, Fr.mont_mul(stack6, tabs["shift_pows"]))
-    a_e, b_e, c_e, z_e, zw_e, pi_e = evs.unbind(0)
+    a_e, b_e, c_e, z_e, zw_e, pi_e = evs.unbind(-3)
     (qo_e, qm_e, ql_e, qr_e, qc_e, s1_e, s2_e, s3_e, l1_e,
      zh_inv_e) = st["circ_e"].unbind(0)
     pts = prims.perm4n(tabs["coset_pts"])
@@ -454,7 +492,7 @@ def _stage_quotient(ctx: BN254Context, st, z_x, alpha, beta, gamma,
     t_x = t_full[..., :t_len, :]
     part = n + 2
     return dict(z_omega_x=z_omega_x, l_1_x=st["l_1_x"], t_x=t_x,
-                t_tail_zero=(t_full[..., t_len:, :] == 0).all(),
+                t_tail_zero=(t_full[..., t_len:, :] == 0).flatten(-2).all(-1),
                 t_lo_x=t_x[..., :part, :],
                 t_mid_x=t_x[..., part:2 * part, :],
                 t_hi_x=t_x[..., 2 * part:, :])
@@ -462,6 +500,8 @@ def _stage_quotient(ctx: BN254Context, st, z_x, alpha, beta, gamma,
 
 def _stage_openings(ctx: BN254Context, st, q3, z_x, alpha, beta, gamma, z,
                     v):
+    """Rounds 4 and 5: evaluations at z, linearization, opening quotients;
+    the challenges are per-lane scalars (..., 16)."""
     Fr = ctx.Fr
     n = ctx.n
     k1c, k2c = Fr.const(ctx.k1), Fr.const(ctx.k2)
@@ -520,7 +560,7 @@ def _stage_openings(ctx: BN254Context, st, q3, z_x, alpha, beta, gamma, z,
     return dict(a_z=a_z, b_z=b_z, c_z=c_z, s_sigma_1_z=s_sigma_1_z,
                 s_sigma_2_z=s_sigma_2_z, r_z=r_z, z_omega_z=z_omega_z,
                 w_z_x_quo=w_z_x_quo, w_z_omega_x=w_z_omega_x,
-                rem1=(rem1 == 0).all(), rem2=(rem2 == 0).all())
+                rem1=(rem1 == 0).all(-1), rem2=(rem2 == 0).all(-1))
 
 
 def prove_bn254(ctx: BN254Context, selectors, copies, a_w, b_w, c_w,
@@ -529,12 +569,16 @@ def prove_bn254(ctx: BN254Context, selectors, copies, a_w, b_w, c_w,
                 ) -> tuple[BN254Proof, BN254Diagnostics]:
     """BN254 5-round prover. Inputs in STANDARD form as 16-bit-word
     arrays: selectors (5, n, 16), copies (3, n, 2), witness columns
-    (n, 16), challenge (5, 16) [alpha beta gamma z v], rand9 (9, 16).
+    (n, 16), challenge (5, 16) [alpha beta gamma z v], rand9 (9, 16). With
+    a leading batch axis (witness columns (B, n, 16), challenge (B, 5, 16),
+    rand9 (B, 9, 16), public inputs (B, n, 16)) it gives B proofs in
+    stack_proofs' layout and (B,) diagnostics, lane i equal to the proof
+    of lane i's inputs.
     `pre` takes precompute_bn254's output; when None the same tables are
     computed inline (identical proof either way)."""
     Fr, Fq = ctx.Fr, ctx.Fq
     ch = Fr.encode(_as_words(challenge, ctx.device))
-    alpha, beta, gamma, z, v = ch.unbind(0)
+    alpha, beta, gamma, z, v = ch.unbind(-2)
     prims = prims or _local_prims(ctx)
     if pre is None:
         pre = precompute_bn254(ctx, selectors, copies, prims)
@@ -546,7 +590,8 @@ def prove_bn254(ctx: BN254Context, selectors, copies, a_w, b_w, c_w,
                              q3["t_lo_x"], q3["t_mid_x"], q3["t_hi_x"],
                              q5["w_z_x_quo"], q5["w_z_omega_x"]])
     xs, ys = Fq.decode(cms.x), Fq.decode(cms.y)
-    pick = lambda i: BigG1Affine(xs[i], ys[i], cms.inf[i])
+    pick = lambda i: BigG1Affine(xs[..., i, :], ys[..., i, :],
+                                 cms.inf[..., i])
     scal = Fr.decode(torch.stack([q5[k] for k in SCALAR_FIELDS]))
     proof = BN254Proof(*[pick(i) for i in range(9)], *scal.unbind(0))
     diags = BN254Diagnostics(satisfied=st["satisfied"],

@@ -13,6 +13,15 @@ picks one with PLONK_TPU_NTT). The proof is the same under every prims.
 Witnesses, challenges and blinding scalars enter in standard form and the
 Proof leaves in standard form; everything between is Montgomery form.
 The device of the context's SRS is where a proof runs.
+
+The prover takes a leading batch axis, with the semantics of `jax.vmap`
+over the JAX package's prover: (B, n) witness columns with (B, 5)
+challenges and (B, 9) blinding give B proofs in the layout `stack_proofs`
+builds, one diagnostic flag per lane. A per-lane scalar has the shape
+(B,) and meets a (B, L) polynomial as `_col(s)`, (B, 1); the circuit-fixed
+tables stay unbatched and broadcast. The batch folds into the rows of
+every transform and commitment, so a batch launches K1 and K2 as often as
+one proof does.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ COMMIT_WINDOW_BITS = 4
 
 
 class ScaledDiagnostics(NamedTuple):
+    """One flag per proof: 0-d for one proof, (B,) for a batch. all_ok
+    reduces over every flag of every lane (JAX's jnp.all under vmap)."""
     satisfied: torch.Tensor
     t_tail_zero: torch.Tensor    # quotient degree bound (exact division)
     w_z_rem_zero: torch.Tensor
@@ -146,8 +157,15 @@ def _tree_sum(F, t: torch.Tensor) -> torch.Tensor:
     return t[..., 0]
 
 
+def _col(s: torch.Tensor) -> torch.Tensor:
+    """A per-lane scalar (shape (...)) as a column that broadcasts against
+    the lanes' (..., L) vectors."""
+    return s[..., None]
+
+
 def _peval_fast(F, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Evaluate at a scalar point in O(log n) depth."""
+    """Evaluate (..., L) coefficients at one point per lane, x of shape
+    (...), in O(log n) depth."""
     return _tree_sum(F, F.mul(coeffs, P.pow_vector(F, x, coeffs.shape[-1])))
 
 
@@ -250,13 +268,16 @@ def _fb_disk_save(ctx: ScaledContext, wb: int, tbl: FixedBaseTable) -> None:
 
 
 def table_commit(ctx: ScaledContext, table):
-    """commit_many bound to an explicit window table: (ctx, [Montgomery
-    coefficient vectors]) -> G1 batch, one K2 launch for the batch."""
+    """commit_many bound to an explicit window table: (ctx, [k Montgomery
+    coefficient vectors of shape (..., L_i)]) -> G1 batch of shape
+    (..., k), one K2 launch over the (prod(...) * k, L) rows."""
 
     def commit(c2, coeff_list):
         L = c2.srs.length
-        padded = torch.stack([P.pad_to(c, L)[..., :L] for c in coeff_list])
-        return msm_fixed_base_many_kernel(c2.Fq, table, c2.Fr.decode(padded))
+        rows = P.stack_rows([P.pad_to(c, L)[..., :L] for c in coeff_list])
+        cms = msm_fixed_base_many_kernel(
+            c2.Fq, table, c2.Fr.decode(rows.reshape(-1, L)))
+        return G1(*(t.reshape(rows.shape[:-1]) for t in cms))
 
     return commit
 
@@ -275,8 +296,9 @@ class ProverPrims(NamedTuple):
     intt_n: (F, vals(..., n), w) -> natural-order coefficients
     ntt8:   (F, coeffs(..., m), w8) -> evaluations (layout defined by perm8)
     intt8:  (F, evals(..., m), w8) -> natural-order coefficients
-    grand_product: (F, fractions(n-1,)) -> accumulator(n,) = [1, prefix...]
-    commit_many:   (ctx, [coeff vectors]) -> G1 batch
+    grand_product: (F, fractions(..., n-1)) -> accumulator(..., n) =
+                   [1, prefix...]
+    commit_many:   (ctx, [k coeff vectors (..., L_i)]) -> G1 batch (..., k)
     perm8:  host np table (m,) natural order -> evaluation-order table
     """
     intt_n: object
@@ -289,35 +311,38 @@ class ProverPrims(NamedTuple):
 
 def _prefix_prod_chunked(F, x: torch.Tensor, n_chunks: int = 1024
                          ) -> torch.Tensor:
-    """Inclusive prefix product of a 1-D tensor: running products down the
-    columns of an (n/n_chunks, n_chunks) view, then each chunk scaled by
-    the product of the chunks before it."""
+    """Inclusive prefix product along the last axis of (..., n): running
+    products down the columns of an (n/n_chunks, n_chunks) view of each
+    lane, then each chunk scaled by the product of the chunks before it."""
     n = x.shape[-1]
+    batch = x.shape[:-1]
     n_chunks = min(n_chunks, n)
     while n % n_chunks:
         n_chunks -= 1
     K = n // n_chunks
-    cols = x.reshape(n_chunks, K).T                    # (K, n_chunks)
-    acc = F.ones((n_chunks,), x.device)
+    cols = x.reshape(batch + (n_chunks, K)).transpose(-1, -2)
+    acc = F.ones(batch + (n_chunks,), x.device)
     scans = []
     for k in range(K):
-        acc = F.mul(acc, cols[k])
+        acc = F.mul(acc, cols[..., k, :])
         scans.append(acc)
-    scans = torch.stack(scans)                         # (K, n_chunks)
-    excl = torch.cat([F.ones((1,), x.device), P.scan(F.mul, acc)[:-1]])
-    return F.mul(scans, excl[None, :]).T.reshape(n)
+    scans = torch.stack(scans, dim=-2)                 # (..., K, n_chunks)
+    excl = torch.cat([F.ones(batch + (1,), x.device),
+                      P.scan(F.mul, acc)[..., :-1]], dim=-1)
+    return F.mul(scans, excl[..., None, :]).transpose(-1, -2).reshape(
+        batch + (n,))
 
 
 def _prefix_prod(F, x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix product of a 1-D tensor: chunked from 4096
+    """Inclusive prefix product along the last axis: chunked from 4096
     elements, the doubling scan below."""
     return (_prefix_prod_chunked(F, x) if x.shape[-1] >= 4096
             else P.scan(F.mul, x))
 
 
 def _local_grand_product(F, fractions: torch.Tensor) -> torch.Tensor:
-    return torch.cat([F.ones((1,), fractions.device),
-                      _prefix_prod(F, fractions)])
+    return torch.cat([F.ones(fractions.shape[:-1] + (1,), fractions.device),
+                      _prefix_prod(F, fractions)], dim=-1)
 
 
 def default_prims() -> ProverPrims:
@@ -428,7 +453,8 @@ def precompute_circuit(ctx: ScaledContext, selectors, copies,
 def _stage_prep(ctx: ScaledContext, a_w, b_w, c_w, rand9,
                 prims: ProverPrims, pre: dict, public_inputs=None) -> dict:
     """Witness-dependent, challenge-independent work: encode, witness
-    check, the 3 (+PI) interpolations, round-1 wire blinding."""
+    check, the 3 (+PI) interpolations, round-1 wire blinding. Witness
+    columns (..., n), rand9 (..., 9), public inputs (..., n) or None."""
     Fr = ctx.Fr
     n = ctx.n
     dev = ctx.device
@@ -444,24 +470,26 @@ def _stage_prep(ctx: ScaledContext, a_w, b_w, c_w, rand9,
     pi_v = (Fr.encode(_as_words(public_inputs, dev)) if has_pi
             else Fr.zeros((n,), dev))
 
-    # step 1: witness check (gate equation incl. PI)
+    # step 1: witness check (gate equation incl. PI), one flag per lane
     lhs = Fr.add(
         Fr.add(Fr.add(Fr.mul(q_l_v, a_v), Fr.mul(q_r_v, b_v)), pi_v),
         Fr.add(Fr.mul(q_o_v, c_v),
                Fr.add(Fr.mul(q_m_v, Fr.mul(a_v, b_v)), q_c_v)))
-    satisfied = torch.all(lhs == 0)
+    satisfied = torch.all(lhs == 0, dim=-1)
 
+    # the rows of each lane stacked at -2: (..., 3 or 4, n)
     rows = [a_v, b_v, c_v] + ([pi_v] if has_pi else [])
-    polys = prims.intt_n(Fr, torch.stack(rows), omega)
-    pi_x = polys[3] if has_pi else None
+    polys = prims.intt_n(Fr, P.stack_rows(rows), omega)
+    pi_x = polys[..., 3, :] if has_pi else None
 
-    # round 1: blinding via the closed form (b_hi x + b_lo)(x^n - 1)
+    # round 1: blinding via the closed form (b_hi x + b_lo)(x^n - 1),
+    # written per lane
     def blind2(b_hi, b_lo, f):
-        out = Fr.zeros((n + 2,), dev)
-        out[0] = Fr.neg(b_lo)
-        out[1] = Fr.neg(b_hi)
-        out[n] = b_lo
-        out[n + 1] = b_hi
+        out = Fr.zeros(b_hi.shape + (n + 2,), dev)
+        out[..., 0] = Fr.neg(b_lo)
+        out[..., 1] = Fr.neg(b_hi)
+        out[..., n] = b_lo
+        out[..., n + 1] = b_hi
         return P.padd(Fr, out, f)
 
     cx = pre["circ_x"]
@@ -472,23 +500,25 @@ def _stage_prep(ctx: ScaledContext, a_w, b_w, c_w, rand9,
         q_o_x=cx[0], q_m_x=cx[1], q_l_x=cx[2], q_r_x=cx[3], q_c_x=cx[4],
         s_sigma_1=cx[5], s_sigma_2=cx[6], s_sigma_3=cx[7],
         l_1_x=cx[8], circ_e=pre["circ_e"],
-        a_x=blind2(rnd[0], rnd[1], polys[0]),
-        b_x=blind2(rnd[2], rnd[3], polys[1]),
-        c_x=blind2(rnd[4], rnd[5], polys[2]),
+        a_x=blind2(rnd[..., 0], rnd[..., 1], polys[..., 0, :]),
+        b_x=blind2(rnd[..., 2], rnd[..., 3], polys[..., 1, :]),
+        c_x=blind2(rnd[..., 4], rnd[..., 5], polys[..., 2, :]),
         pi_x=pi_x,
         h_mont=pre["h_mont"])
 
 
 def _stage_grand_product(ctx: ScaledContext, st: dict, beta, gamma,
                          prims: ProverPrims):
-    """Round 2: permutation fractions + prefix product + blinding. Returns
-    (z_x, denominator_ok)."""
+    """Round 2: permutation fractions + prefix product + blinding. beta
+    and gamma are per-lane scalars (...). Returns (z_x, denominator_ok),
+    one flag per lane."""
     Fr = ctx.Fr
     pp = ctx.params
     n = ctx.n
+    beta, gamma = _col(beta), _col(gamma)
     w_i = st["h_mont"][:n - 1]
     k1c, k2c = Fr.const(pp.k1), Fr.const(pp.k2)
-    aa, bb, cc = st["a_v"][:n - 1], st["b_v"][:n - 1], st["c_v"][:n - 1]
+    aa, bb, cc = (st[k][..., :n - 1] for k in ("a_v", "b_v", "c_v"))
     denom = Fr.mul(
         Fr.mul(Fr.add(aa, Fr.add(Fr.mul(beta, w_i), gamma)),
                Fr.add(bb, Fr.add(Fr.mul(beta, Fr.mul(w_i, k1c)), gamma))),
@@ -497,20 +527,20 @@ def _stage_grand_product(ctx: ScaledContext, st: dict, beta, gamma,
         Fr.mul(Fr.add(aa, Fr.add(Fr.mul(beta, st["sigma_1"][:n - 1]), gamma)),
                Fr.add(bb, Fr.add(Fr.mul(beta, st["sigma_2"][:n - 1]), gamma))),
         Fr.add(cc, Fr.add(Fr.mul(beta, st["sigma_3"][:n - 1]), gamma)))
-    denominator_ok = torch.logical_and(torch.all(numer != 0),
-                                       torch.all(denom != 0))
+    denominator_ok = torch.logical_and(torch.all(numer != 0, dim=-1),
+                                       torch.all(denom != 0, dim=-1))
     fractions = Fr.mul(denom, Fr.inv(numer))
     acc = prims.grand_product(Fr, fractions)
     acc_x = prims.intt_n(Fr, acc, ctx.omega())
 
     rnd = st["rnd"]
-    out = Fr.zeros((n + 3,), ctx.device)
-    out[0] = Fr.neg(rnd[8])
-    out[1] = Fr.neg(rnd[7])
-    out[2] = Fr.neg(rnd[6])
-    out[n] = rnd[8]
-    out[n + 1] = rnd[7]
-    out[n + 2] = rnd[6]
+    out = Fr.zeros(rnd.shape[:-1] + (n + 3,), ctx.device)
+    out[..., 0] = Fr.neg(rnd[..., 8])
+    out[..., 1] = Fr.neg(rnd[..., 7])
+    out[..., 2] = Fr.neg(rnd[..., 6])
+    out[..., n] = rnd[..., 8]
+    out[..., n + 1] = rnd[..., 7]
+    out[..., n + 2] = rnd[..., 6]
     return P.padd(Fr, out, acc_x), denominator_ok
 
 
@@ -526,22 +556,24 @@ def _stage_quotient(ctx: ScaledContext, st: dict, z_x, alpha, beta, gamma,
     omega = ctx.omega()
     w8 = ctx.omega8()
     shift = ctx.coset_shift
+    alpha, beta, gamma = _col(alpha), _col(beta), _col(gamma)
     shift_pows = Fr.array(_pow_table(r, shift, m), dev)
     inv_shift_pows = Fr.array(_pow_table(r, pow(shift, -1, r), m), dev)
     omega_pows_z = Fr.array(_pow_table(r, omega, n + 3), dev)
     k1c, k2c = Fr.const(pp.k1), Fr.const(pp.k2)
 
-    # the per-proof forward coset evaluations ride ONE stacked NTT; the
-    # circuit-fixed rows come precomputed from precompute_circuit
+    # the per-proof forward coset evaluations ride ONE stacked NTT, each
+    # lane's rows at -2; the circuit-fixed rows come precomputed from
+    # precompute_circuit
     z_omega_x = Fr.mul(z_x, omega_pows_z)
     has_pi = st.get("pi_x") is not None
     rows = [st["a_x"], st["b_x"], st["c_x"], z_x, z_omega_x]
     if has_pi:
         rows.append(st["pi_x"])
-    stackp = torch.stack([P.pad_to(c, m) for c in rows])
+    stackp = P.stack_rows([P.pad_to(c, m) for c in rows])
     evs = prims.ntt8(Fr, Fr.mul(stackp, shift_pows), w8)
-    a_e, b_e, c_e, z_e, zw_e = (evs[i] for i in range(5))
-    pi_e = evs[5] if has_pi else Fr.zeros((m,), dev)
+    a_e, b_e, c_e, z_e, zw_e = (evs[..., i, :] for i in range(5))
+    pi_e = evs[..., 5, :] if has_pi else Fr.zeros((m,), dev)
     (qo_e, qm_e, ql_e, qr_e, qc_e, s1_e, s2_e, s3_e, l1_e, zh_e) = (
         st["circ_e"][i] for i in range(10))
 
@@ -569,7 +601,7 @@ def _stage_quotient(ctx: ScaledContext, st: dict, z_x, alpha, beta, gamma,
     t_full = Fr.mul(prims.intt8(Fr, t_e, w8), inv_shift_pows)
     t_len = 3 * n + 6
     t_x = t_full[..., :t_len]
-    t_tail_zero = torch.all(t_full[..., t_len:] == 0)
+    t_tail_zero = torch.all(t_full[..., t_len:] == 0, dim=-1)
 
     part = n + 2
     return dict(z_omega_x=z_omega_x, l_1_x=st["l_1_x"], t_x=t_x,
@@ -580,7 +612,8 @@ def _stage_quotient(ctx: ScaledContext, st: dict, z_x, alpha, beta, gamma,
 
 def _stage_openings(ctx: ScaledContext, st: dict, q3: dict, z_x,
                     alpha, beta, gamma, z, v):
-    """Rounds 4+5: evaluations at z, linearization, opening quotients."""
+    """Rounds 4+5: evaluations at z, linearization, opening quotients.
+    The challenges are per-lane scalars (...)."""
     Fr = ctx.Fr
     pp = ctx.params
     n = ctx.n
@@ -599,35 +632,35 @@ def _stage_openings(ctx: ScaledContext, st: dict, q3: dict, z_x,
     z_omega_z = _peval_fast(Fr, q3["z_omega_x"], z)
 
     # standard linearization (degree-1 in committed polys)
-    r_x = P.pscale(Fr, st["q_m_x"], Fr.mul(a_z, b_z))
-    r_x = P.padd(Fr, r_x, P.pscale(Fr, st["q_l_x"], a_z))
-    r_x = P.padd(Fr, r_x, P.pscale(Fr, st["q_r_x"], b_z))
-    r_x = P.padd(Fr, r_x, P.pscale(Fr, st["q_o_x"], c_z))
+    scale = lambda poly, s: P.pscale(Fr, poly, _col(s))
+    r_x = scale(st["q_m_x"], Fr.mul(a_z, b_z))
+    r_x = P.padd(Fr, r_x, scale(st["q_l_x"], a_z))
+    r_x = P.padd(Fr, r_x, scale(st["q_r_x"], b_z))
+    r_x = P.padd(Fr, r_x, scale(st["q_o_x"], c_z))
     r_x = P.padd(Fr, r_x, st["q_c_x"])
     azg = Fr.add(Fr.add(a_z, Fr.mul(beta, z)), gamma)
     bzg = Fr.add(Fr.add(b_z, Fr.mul(Fr.mul(beta, k1c), z)), gamma)
     czg = Fr.add(Fr.add(c_z, Fr.mul(Fr.mul(beta, k2c), z)), gamma)
-    r_x = P.padd(Fr, r_x, P.pscale(
-        Fr, z_x, Fr.mul(Fr.mul(Fr.mul(azg, bzg), czg), alpha)))
+    r_x = P.padd(Fr, r_x, scale(
+        z_x, Fr.mul(Fr.mul(Fr.mul(azg, bzg), czg), alpha)))
     as1z = Fr.add(a_z, Fr.add(Fr.mul(beta, s_sigma_1_z), gamma))
     bs2z = Fr.add(b_z, Fr.add(Fr.mul(beta, s_sigma_2_z), gamma))
-    r_x = P.psub(Fr, r_x, P.pscale(
-        Fr, s_sigma_3,
+    r_x = P.psub(Fr, r_x, scale(
+        s_sigma_3,
         Fr.mul(Fr.mul(Fr.mul(as1z, bs2z), alpha), Fr.mul(beta, z_omega_z))))
     l_1_z = _peval_fast(Fr, q3["l_1_x"], z)
-    r_x = P.padd(Fr, r_x, P.pscale(Fr, z_x, Fr.mul(l_1_z, alpha_sq)))
+    r_x = P.padd(Fr, r_x, scale(z_x, Fr.mul(l_1_z, alpha_sq)))
     r_z = _peval_fast(Fr, r_x, z)
 
     # round 5: opening quotients (closed-form synthetic division)
     w = P.padd(Fr, q3["t_lo_x"],
-               P.pscale(Fr, q3["t_mid_x"], Fr.pow_static(z, n + 2)))
-    w = P.padd(Fr, w, P.pscale(Fr, q3["t_hi_x"],
-                               Fr.pow_static(z, 2 * n + 4)))
+               scale(q3["t_mid_x"], Fr.pow_static(z, n + 2)))
+    w = P.padd(Fr, w, scale(q3["t_hi_x"], Fr.pow_static(z, 2 * n + 4)))
     w = P.padd_const(Fr, w, Fr.neg(t_z))
 
     def open_term(poly, eval_at_z, v_pow):
         shifted = P.padd_const(Fr, poly, Fr.neg(eval_at_z))
-        return P.pscale(Fr, shifted, Fr.pow_static(v, v_pow))
+        return scale(shifted, Fr.pow_static(v, v_pow))
 
     w = P.padd(Fr, w, open_term(r_x, r_z, 1))
     w = P.padd(Fr, w, open_term(a_x, a_z, 2))
@@ -652,7 +685,11 @@ def prove_scaled(ctx: ScaledContext, selectors, copies, a_w, b_w, c_w,
                  ) -> tuple[Proof, ScaledDiagnostics]:
     """Scaled 5-round prover. All inputs in STANDARD form: selectors
     (5, n), copies (3, n, 2), witness columns (n,), challenge (5,)
-    [alpha beta gamma z v], rand9 (9,).
+    [alpha beta gamma z v], rand9 (9,), public inputs (n,) or None. With a
+    leading batch axis, witness columns (B, n), challenge (B, 5), rand9
+    (B, 9) and public inputs (B, n) give B proofs (the layout of
+    stack_proofs) and (B,) diagnostics, lane i equal to the proof of lane
+    i's inputs.
 
     The nine commitments are deferred and made in one batched MSM at the
     end: with caller-supplied challenges nothing downstream consumes them.
@@ -662,7 +699,7 @@ def prove_scaled(ctx: ScaledContext, selectors, copies, a_w, b_w, c_w,
     if prims is None:
         prims = _auto_prims(ctx)
     ch = Fr.encode(_as_words(challenge, ctx.device))
-    alpha, beta, gamma, z, v = (ch[i] for i in range(5))
+    alpha, beta, gamma, z, v = (ch[..., i] for i in range(5))
 
     if pre is None:
         pre = precompute_circuit(ctx, selectors, copies, prims)
@@ -675,7 +712,7 @@ def prove_scaled(ctx: ScaledContext, selectors, copies, a_w, b_w, c_w,
                                   q3["t_lo_x"], q3["t_mid_x"],
                                   q3["t_hi_x"],
                                   q5["w_z_x_quo"], q5["w_z_omega_x"]])
-    pick = lambda i: G1(cms.x[i], cms.y[i], cms.inf[i])
+    pick = lambda i: G1(cms.x[..., i], cms.y[..., i], cms.inf[..., i])
 
     dec = Fr.decode
     proof = Proof(a_s=pick(0), b_s=pick(1), c_s=pick(2), z_s=pick(3),
@@ -697,7 +734,8 @@ def make_prover(ctx: ScaledContext, selectors, copies,
     """Prover for a fixed circuit: the window table and the circuit tables
     are made once here; returns
     fn(a_w, b_w, c_w, challenge, rand9, public_inputs=None)
-    -> (Proof, ScaledDiagnostics)."""
+    -> (Proof, ScaledDiagnostics), for one proof or a batch (see
+    prove_scaled)."""
     base = prims if prims is not None else _auto_prims(ctx)
     tbl = fixed_base_table(ctx)
     pre = precompute_circuit(ctx, selectors, copies, base)
@@ -718,8 +756,9 @@ def prove_scaled_checked(ctx: ScaledContext, selectors, copies, a_w, b_w,
     1-based indices are checked before anything is gathered or launched
     (XLA clamps an index out of range; torch raises on the CPU, and on a
     CUDA device fires an assert that poisons the context), then the four
-    diagnostics (src/plonk.h:231, :506-510, :610, :617) after the proof.
-    Returns (Proof, ScaledDiagnostics) otherwise."""
+    diagnostics (src/plonk.h:231, :506-510, :610, :617) after the proof,
+    raised if any lane of a batch fails one. Returns (Proof,
+    ScaledDiagnostics) otherwise."""
     n = ctx.n
     cps = _as_words(copies, ctx.device)
     if not bool(((cps[..., 0] >= 0) & (cps[..., 0] < 3)).all()):
@@ -738,7 +777,7 @@ def prove_scaled_checked(ctx: ScaledContext, selectors, copies, a_w, b_w,
              "W_z opening remainder nonzero (src/plonk.h:610)"),
             (diags.w_zw_rem_zero,
              "W_zw opening remainder nonzero (src/plonk.h:617)")):
-        if not bool(ok):
+        if not bool(ok.all()):
             raise ValueError(what)
     return proof, diags
 

@@ -34,6 +34,14 @@ def pad_to(c: torch.Tensor, length: int) -> torch.Tensor:
     return TF.pad(c, (0, length - cur))
 
 
+def stack_rows(rows) -> torch.Tensor:
+    """Polynomials (..., L), their leading (lane) axes broadcast, stacked
+    at the row axis -2: (..., k, L), each lane's k rows beside its lane
+    axes."""
+    shape = torch.broadcast_shapes(*(r.shape for r in rows))
+    return torch.stack([r.expand(shape) for r in rows], dim=-2)
+
+
 def effective_len(c) -> int:
     """Length after reference-style trailing-zero trimming
     (src/poly.h:22-24), of one polynomial on the host."""

@@ -239,17 +239,17 @@ def squeeze(F, params: PoseidonParams, state: torch.Tensor,
 
 
 def tree_digest(F, params: PoseidonParams, leaves) -> torch.Tensor:
-    """Binary Poseidon tree hash of an (m,) standard-form vector (m a power
-    of two): log2(m) batched permutations, parent = permute([l, r, 0..])[0].
-    Returns the 0-d Montgomery-form digest."""
+    """Binary Poseidon tree hash of (..., m) standard-form vectors (m a
+    power of two): log2(m) batched permutations, parent =
+    permute([l, r, 0..])[0]. Returns the (...) Montgomery-form digests."""
     x = F.encode(leaves)
     t = params.t
-    while x.shape[0] > 1:
-        m = x.shape[0] // 2
-        state = torch.cat([x[0::2, None], x[1::2, None],
-                           F.zeros((m, t - 2), x.device)], dim=-1)
-        x = permute(F, params, state)[:, 0]
-    return x[0]
+    while x.shape[-1] > 1:
+        half = x.shape[:-1] + (x.shape[-1] // 2,)
+        state = torch.cat([x[..., 0::2, None], x[..., 1::2, None],
+                           F.zeros(half + (t - 2,), x.device)], dim=-1)
+        x = permute(F, params, state)[..., 0]
+    return x[..., 0]
 
 
 def host_tree_digest(params: PoseidonParams, leaves) -> int:
@@ -351,18 +351,18 @@ def big_squeeze(F, params: PoseidonParams, state: torch.Tensor,
 
 
 def big_tree_digest(F, params: PoseidonParams, leaves) -> torch.Tensor:
-    """Binary Poseidon tree over (m, limbs) standard-form leaves (m a power
-    of two): log2(m) batched permutations, parent = permute([l, r, 0..])[0].
-    Returns the (limbs,) Montgomery-form digest; host mirror:
-    host_tree_digest."""
+    """Binary Poseidon tree over (..., m, limbs) standard-form leaves (m a
+    power of two): log2(m) batched permutations, parent =
+    permute([l, r, 0..])[0]. Returns the (..., limbs) Montgomery-form
+    digests; host mirror: host_tree_digest."""
     x = F.encode(leaves)
     t = params.t
-    while x.shape[0] > 1:
-        m = x.shape[0] // 2
-        state = torch.cat([x[0::2, None], x[1::2, None],
-                           F.zeros((m, t - 2), x.device)], dim=-2)
-        x = big_permute(F, params, state)[:, 0]
-    return x[0]
+    while x.shape[-2] > 1:
+        half = x.shape[:-2] + (x.shape[-2] // 2,)
+        state = torch.cat([x[..., 0::2, None, :], x[..., 1::2, None, :],
+                           F.zeros(half + (t - 2,), x.device)], dim=-2)
+        x = big_permute(F, params, state)[..., 0, :]
+    return x[..., 0, :]
 
 
 class HostSponge:

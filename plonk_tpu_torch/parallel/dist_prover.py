@@ -82,6 +82,11 @@ def dist_commit_many(ctx, mesh: Mesh, coeff_list, axis: str = "sp") -> G1:
     return jac_to_affine(Fq, tot)
 
 
+def _batch_refused() -> ValueError:
+    return ValueError("the mesh prims prove one proof at a time; batched "
+                      "proving over a mesh is ROADMAP queue 1 item 10")
+
+
 def make_dist_prims(ctx, mesh: Mesh, axis: str = "sp",
                     exchange=None) -> PS.ProverPrims:
     """ProverPrims running every heavy step sharded over `axis`. exchange:
@@ -95,10 +100,18 @@ def make_dist_prims(ctx, mesh: Mesh, axis: str = "sp",
     perm = DN.transposed_perm(ctx.domain8, n_dev)
 
     def sharded(fn):
-        return lambda F, x, w: unshard_vector(
-            fn(F, mesh, shard_vector(mesh, x), w, axis, exchange=exchange))
+        def transform(F, x, w):
+            # a proof stacks at most its rows: (rows, n); a batch adds an
+            # axis before them
+            if x.dim() > 2:
+                raise _batch_refused()
+            return unshard_vector(fn(F, mesh, shard_vector(mesh, x), w,
+                                     axis, exchange=exchange))
+        return transform
 
     def grand_product(F, fractions):
+        if fractions.dim() > 1:
+            raise _batch_refused()
         padded = torch.cat([fractions, F.ones((1,), fractions.device)])
         return unshard_vector(dist_grand_product(
             F, mesh, shard_vector(mesh, padded), axis, exchange))

@@ -9,6 +9,9 @@ Fiat–Shamir ones with their nonce and challenge) and the toy prover's
 diagnostics both ways. Words keep their form: Montgomery
 words for the scaled curve and BN254, standard words for the toy fields.
 Nothing here imports JAX: any array that `np.asarray` accepts will do.
+Leading axes carry over: a proof or diagnostics from JAX's vmapped
+provers (every leaf with a leading batch axis B) becomes the port's
+stacked proof (the layout of `stack_proofs`) or (B,) flags.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models import plonk_bn254 as PB
+from ..models import plonk_scaled as PS
 from ..models.constraints import Constraints
 from ..models.fiat_shamir import FsProof
 from ..models.fs_poseidon import PoseidonFsProof
@@ -169,6 +173,20 @@ def big_table_from_numpy(x, y, inf, window_bits: int, device):
     return BigFixedBaseTable(x=_words(x, device), y=_words(y, device),
                              inf=_flags(inf, device),
                              window_bits=int(window_bits))
+
+
+def scaled_diagnostics_from_numpy(diags, device) -> PS.ScaledDiagnostics:
+    """ScaledDiagnostics of bool tensors from any object with its four
+    flags (a JAX ScaledDiagnostics: 0-d flags, or (B,) from vmap)."""
+    return PS.ScaledDiagnostics(*(_flags(getattr(diags, k), device)
+                                  for k in PS.ScaledDiagnostics._fields))
+
+
+def bn254_diagnostics_from_numpy(diags, device) -> PB.BN254Diagnostics:
+    """BN254Diagnostics of bool tensors from any object with its four
+    flags (a JAX BN254Diagnostics, vmapped or not)."""
+    return PB.BN254Diagnostics(*(_flags(getattr(diags, k), device)
+                                 for k in PB.BN254Diagnostics._fields))
 
 
 def bn254_proof_from_numpy(proof, device):

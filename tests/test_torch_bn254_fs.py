@@ -36,7 +36,7 @@ equals the prover's challenge; a refused beta/gamma takes the next nonce
 and the refusal is raised after JAX's number of attempts; explicit prims
 give the default's proof and vk; the proofs round-trip through JAX's
 numpy form. The Poseidon proof of rand9 17..25 is lane 0 of prove_many,
-which proves lane by lane through prove().
+one batched pass whose lanes equal prove() of theirs.
 """
 import json
 import os
@@ -140,8 +140,8 @@ def blake(setup):
 @pytest.fixture(scope="module")
 def many(setup, blake):
     """The Poseidon prover's prove_many at B = 2 (rand9 17..25, 31..39):
-    it proves lane by lane through prove(), so lane 0 is the single
-    Poseidon proof of these inputs."""
+    one batched pass whose lane 0 is the single Poseidon proof of these
+    inputs."""
     ctx, (sel, cp, a, b, c) = setup
     fs = FSP.BN254PoseidonFsProver(ctx, sel, cp)
     return fs, fs.prove_many(*(np.stack([w, w]) for w in (a, b, c)),
@@ -375,9 +375,12 @@ def test_poseidon_retry_takes_the_next_nonce(setup, monkeypatch):
     np.testing.assert_array_equal(
         _replay("poseidon", ctx, fs.vk, out.proof, 1), out.challenge)
     calls.clear()
+    # prove() is prove_many of one lane: the stand-in stage gives a
+    # grand product of that batch's shape
+    z_x = torch.zeros((1, N + 3, 16), dtype=torch.int64)
     monkeypatch.setattr(PB, "_stage_grand_product",
                         lambda *args: calls.append(1) or
-                        (None, torch.tensor(False)))
+                        (z_x, torch.tensor([False])))
     with pytest.raises(RuntimeError,
                        match="no admissible beta/gamma in 32 retries"):
         fs.prove(a, b, c, RND)

@@ -1021,3 +1021,148 @@ def test_toy_batch_on_cuda_matches_cpu(dev):
     sharded = TB.make_sharded_prover(ctx, sel, cp,
                                      make_1d_mesh("dp", 8, device=dev))(*args)
     _same_words(sharded, out[1])
+
+
+# ---- batched proving: one pass for B proofs, one proof's launches ----
+
+def _leaves(proof) -> list:
+    """The tensors of a proof of either curve, points' words first."""
+    return [t for f in proof
+            for t in (f if isinstance(f, tuple) else (f,))]
+
+
+def _lane_equal(batch, single, i: int) -> bool:
+    """Lane i of a stacked proof equals `single`, word for word."""
+    return all(torch.equal(x[i].cpu(), y.cpu())
+               for x, y in zip(_leaves(batch), _leaves(single)))
+
+
+def _same_proofs(p, q) -> bool:
+    """Two proofs (or stacked batches) of either curve equal word for
+    word."""
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(_leaves(p), _leaves(q)))
+
+
+def _scaled_batch(n: int, B: int):
+    """Inputs of B scaled proofs: witnesses x0 = 3 + i, lane 1's c[5] off
+    by one (a wrong witness), blinding 1..9 + 100 i."""
+    p = SCALED_FR.p
+    sel, cp = square_chain_circuit(p, n)[:2]
+    wits = [square_chain_circuit(p, n, x0=3 + i)[2:] for i in range(B)]
+    a, b, c = (np.stack([w[k] for w in wits]).astype(np.int64)
+               for k in range(3))
+    c[1, 5] = (c[1, 5] + 1) % p
+    chs = np.tile(np.array([1111, 2222, 3333, 4444, 5555]), (B, 1))
+    rnds = (np.arange(1, 10) + 100 * np.arange(B)[:, None]) % p
+    return sel, cp, (a, b, c, chs, rnds)
+
+
+def test_batched_proof_on_cuda_matches_cpu(dev):
+    """B = 3 scaled proofs at n = 16 (one wrong witness): the card's batch
+    equals the CPU port's word for word, diagnostics per lane included."""
+    sel, cp, args = _scaled_batch(16, 3)
+    outs = []
+    for d in ("cpu", dev):
+        ctx = PS.scaled_new(16, device=d)
+        outs.append(PS.make_prover(ctx, sel, cp)(*args))
+    (p_cpu, d_cpu), (p_gpu, d_gpu) = outs
+    assert _same_proofs(p_cpu, p_gpu)
+    for f, g in zip(d_cpu, d_gpu):
+        assert torch.equal(f, g.cpu())
+    assert d_gpu.satisfied.tolist() == [True, False, True]
+
+
+def test_batched_launches_equal_one_proof(dev):
+    """At n = 4096 (K1's blocked layout) a batch of 2 launches K1 and K2
+    as often as one proof, and its lanes equal the single proofs."""
+    sel, cp, args = _scaled_batch(4096, 2)
+    prover = PS.make_prover(PS.scaled_new(4096, device=dev), sel, cp)
+    kernels.reset_counts()
+    single = [prover(*(x[i] for x in args)) for i in range(2)]
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"row_stages": 8, "commit_many": 2}
+    kernels.reset_counts()
+    proof, diags = prover(*args)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"row_stages": 4, "commit_many": 1}
+    assert diags.satisfied.tolist() == [True, False]
+    for i, (one, d) in enumerate(single):
+        assert _lane_equal(proof, one, i)
+        assert bool(d.satisfied) == bool(diags.satisfied[i])
+
+
+def test_batched_bn254_proof_on_cuda_matches_cpu(dev):
+    """B = 2 BN254 proofs at n = 8: the card's batch equals the CPU port's
+    word for word and each single proof, with one proof's launches (K3 4,
+    K4 1)."""
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
+    circuits = [bn254_mul_circuit(8, seed=11 + i) for i in range(2)]
+    sel, cp = circuits[0][:2]
+    a, b, c = (np.stack([ci[2 + k] for ci in circuits]) for k in range(3))
+    chs = np.stack([words_vec([111111, 222222, 333333, 444444, 555555]),
+                    words_vec([666666, 777777, 888888, 999999, 1234567])])
+    rnds = np.stack([words_vec(range(17, 26)), words_vec(range(31, 40))])
+    outs = []
+    for d in ("cpu", dev):
+        ctx = PB.bn254_setup(8, secret=987654321, device=d)
+        prover = PB.make_prover_bn254(ctx, sel, cp)
+        kernels.reset_counts()
+        proof, diags = prover(a, b, c, chs, rnds)
+        assert bool(diags.all_ok()) and diags.satisfied.shape == (2,)
+        if d != "cpu":
+            assert dict(kernels.LAUNCHES) == {"big_row": 4, "big_commit": 1}
+            single = [prover(a[i], b[i], c[i], chs[i], rnds[i])[0]
+                      for i in range(2)]
+        outs.append(proof)
+    assert _same_proofs(outs[0], outs[1])
+    for i in range(2):
+        assert _lane_equal(outs[1], single[i], i)
+
+
+def test_commit_kernel_batched_rows_with_zero_lane(dev):
+    """K2 at a batch's B * 9 rows (B = 16, L = 4 101, more rows than SMs:
+    one tile a commitment) with one all-zero lane, against its plain
+    version."""
+    rng = np.random.default_rng(144)
+    r = SCALED_CURVE.r
+    L = 4101
+    tbl = CM.build_commit_table(Fq, _commit_points(rng, L), r.bit_length())
+    sc = rng.integers(0, r, size=(144, L))
+    sc[27:36] = 0
+    scalars = torch.as_tensor(sc, device=dev)
+    before = kernels.LAUNCHES["commit_many"]
+    got = CM.msm_fixed_base_many_kernel(Fq, tbl, scalars)
+    assert kernels.LAUNCHES["commit_many"] == before + 1
+    want = C.jac_to_affine(Fq, CM.commit_many_plain(Fq, tbl, scalars))
+    _assert_affine_equal(got, want)
+    assert bool(got.inf[27:36].all())
+
+
+def test_big_commit_kernel_batched_rows_with_zero_lane(dev):
+    """K4 at a batch's B * 9 rows (B = 4: 36) with one all-zero lane,
+    against its plain version."""
+    from plonk_tpu_torch.ops import bigcommit as BK
+    from plonk_tpu_torch.ops import bigcurve as BC
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    F = BigMontField(BC.BN254_FQ)
+    L = 300
+    rng = np.random.default_rng(36)
+    ks = [int(k) for k in rng.integers(1, 20, size=L)]
+    g = BC.bn254_generator(F, (L,), dev)
+    bits = torch.as_tensor(np.stack([BC.scalar_to_bits(k, 254) for k in ks]))
+    tbl = BC.build_big_table(F, BC.big_jac_mul(F, g, bits, 254), 4, 254)
+    sc = rng.integers(0, 1 << 16, size=(36, L, 16))
+    sc[..., 15] &= 0x1FFF
+    sc[9:18] = 0
+    scalars = torch.as_tensor(sc, device=dev)
+    before = kernels.LAUNCHES["big_commit"]
+    got = BC.big_to_affine(F, BK.big_commit_many(
+        F, tbl, scalars, BK.pack_commit_table(tbl)))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["big_commit"] == before + 1
+    want = BC.big_to_affine(F, BK.big_commit_many_plain(F, tbl, scalars))
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert bool(got[2][9:18].all()) and not bool(got[2][:9].any())
