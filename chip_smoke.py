@@ -51,10 +51,12 @@ which the JAX package configures its BN254 prover:
      (16-limb fixed-base commit) against its plain version, affine-equal,
      at B = 9, L = 4101 and on an edge batch;
  11. the n = 8 proof on the GPU against the CPU port and the JAX
-     package's recorded values;
+     package's recorded values, each device computing its own SRS and
+     window table under empty caches of its own;
  12. the main path: make_prover_bn254, prove (K3 and K4 launches
-     counted), diagnostics, make_vk_bn254, verify, tamper rejection;
- 13. times: proofs/s over 5 reps with distinct blinding, the stage split
+     counted), diagnostics, make_vk_bn254 (the proof's verify, and a
+     tampered proof's rejection, are phase 31's verify_bn254_many);
+ 13. times: proofs/s over 2 reps with distinct blinding, the stage split
      of a proof, device events and device time of a proof under
      torch.profiler (so the idle share), verify, each kernel against its
      plain version, peak memory.
@@ -87,9 +89,9 @@ same context, with its eight shards all on the card:
      one launch;
  18. prove_scaled with make_dist_prims on 8 shards, through K8 and K9 and
      through plain copies: launches counted, diagnostics, the proof equal
-     to phase 6's, verify, tamper rejection; the device events and device
+     to phase 6's, verify, tamper rejection (the device events and device
      time of a sharded proof of each kind under torch.profiler in a fresh
-     process (--dist-events);
+     process: --dist-events, below);
  19. proofs/s of the default prims and of both sharded prims in turns,
      K8 and K9 against their plain versions: the prefix scan's device and
      host time a call and its device events a call (fresh process), K9
@@ -124,10 +126,10 @@ builds it and phase 25 loads it):
  23. the Poseidon Fiat-Shamir prover (models/fs_poseidon.py): the same
      checks; the card's tree_digest of random public inputs equal to the
      CPU port's (2^16 of them) and to host_tree_digest (2^12);
-     torch.profiler's device events of one permutation and of one proof
-     of each prover (prove_many is phase 30's);
- 24. verify_scaled_many at B = 4 proofs of distinct blinding, then with
-     one lane tampered, each lane equal to verify_scaled of its proof;
+     torch.profiler's device events of one permutation (prove_many is
+     phase 30's);
+ 24. verify_scaled_many at B = 4 proofs of distinct blinding, one lane
+     tampered, each lane equal to verify_scaled of its proof;
  25. proof and SRS bytes (utils/serialization.py) round-trip on the card
      and equal the CPU port's at n = 16; a second context loads the
      cached window table, words equal; prove_scaled_checked gives phase
@@ -149,10 +151,11 @@ models/fs_poseidon.py over plonk_bn254's stages) and verify_bn254_many:
  28. at 2^12 gates on the context, circuit, prover and verifying key of
      phases 10-12: the BLAKE2b FS prover (its vk equal to
      make_vk_bn254's; K3 and K4 launches counted exactly: K3 4, K4 4 a
-     proof; diagnostics; the proof equal to make_prover_bn254's for its
-     challenges; verify accepts), then BLAKE2b FS and make_prover_bn254
-     proofs/s in turns and the build, proof and verify times (the
-     Poseidon prover and verify_bn254_many are phase 31's).
+     proof; diagnostics; the challenges equal to the host replay; the
+     proof equal to make_prover_bn254's for its challenges;
+     verify_bn254_fs accepts it), then BLAKE2b FS and
+     make_prover_bn254 proofs/s in turns and the build and proof times
+     (the Poseidon prover and verify_bn254_many are phase 31's).
 
 Then batched proving, each batch one pass whose kernel launches are one
 proof's:
@@ -173,13 +176,37 @@ proof's:
  31. on phases 10-12's 2^12 BN254 context, lanes bn254_mul_circuit seeds
      11 + i with bench.py's blinding variants: BN254PoseidonFsProver.
      prove_many at B = 4 (K3 4, K4 4; in place of a single Poseidon
-     proof), each lane equal to make_prover_bn254's single proof
-     for its challenges; make_prover_bn254 on the batch (K3 4, K4 1)
-     equal lane by lane; K3 and K4 at the batch's shapes; every lane's
-     challenges equal to the host replay's, then verify_bn254_many on
+     proof), every lane's challenges equal to the host replay's, lane 0
+     equal to make_prover_bn254's single proof for its challenges and
+     accepted by verify_bn254_fs_poseidon; make_prover_bn254 on the
+     batch (K3 4, K4 1) equal to the FS lanes; K3 and K4 at the batch's
+     shapes; then verify_bn254_many on
      [phase 12's proof, the BLAKE2b proof, the 4 lanes, the BLAKE2b
      proof with [a] replaced] giving [T, T, T, T, T, T, F] (the Poseidon
      verify of each lane, batched); batch and single times.
+
+Then the BN254 commitments without a window table (ops/bigcurve.py's
+Pippenger, ops/glv.py) and the BN254 disk caches (HOME and
+PLONK_TPU_CACHE both point into build/ and are emptied at the start, so
+that phase 10 writes the SRS and table files and phase 34 loads them):
+ 32. the JAX package's bench_bn254_msm configuration: 2^14 copies of the
+     generator, random scalars below r from default_rng(0), 8-bit
+     windows; plain Pippenger and GLV each equal to (sum s_i) G from a
+     python-int ladder on every roll; points/s over 2 distinct rolls of
+     the scalars after a warm call (GLV's read by torch.profiler: device
+     events, device time, so the idle share), peak memory, no kernel
+     launched; the window combination (Horner's rule) timed alone with
+     its operator calls;
+ 33. on phases 10-12's context, table and circuit: K4 at B = 9 equal to
+     _commit_many by GLV and by plain Pippenger on the same scalars (the
+     JAX package's check_bn254_pallas_commit_parity), each commit call
+     timed, each _commit_many call's peak memory; make_vk_bn254 and a make_prover_bn254 proof under
+     PLONK_TPU_BN254_FB=0 equal word for word to phase 12's, the proof
+     launching K3 4 and K4 0 times;
+ 34. a fresh bn254_setup and a fresh context's window table load phase
+     10's files (build_big_table and big_fixed_base_mul_many refused
+     meanwhile), words equal, the packed table K4 reads too; load time
+     against build time.
 
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
@@ -204,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import shutil
@@ -233,6 +261,7 @@ try:
     from plonk_tpu_torch.ops import commit as CM
     from plonk_tpu_torch.ops import curve as C
     from plonk_tpu_torch.ops import fused_ntt as FN
+    from plonk_tpu_torch.ops import glv as GLV
     from plonk_tpu_torch.ops import mxu_ntt as MX
     from plonk_tpu_torch.ops import ntt as N
     from plonk_tpu_torch.ops import poseidon as PO
@@ -330,7 +359,7 @@ TOY_MODES = {"naive": dict(), "table": dict(commit_mode="table"),
 TOY_BATCH = 1 << 16          # proofs in phase 21's batch
 TOY_CPU_LANES = 1024         # lanes held against the CPU port
 TOY_SEED = 20260101
-TOY_TIMED = {1: 20, 1024: 5, TOY_BATCH: 3}    # batch -> timed reps
+TOY_TIMED = {1: 10, 1024: 3, TOY_BATCH: 2}    # batch -> timed reps
 
 
 def bound_ms(n_bytes: float, n_imad: float):
@@ -493,6 +522,7 @@ STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
           "_stage_openings")
 PROFILE_REPS = 3
 BN_PROFILE_REPS = 1     # phase 13's staged and profiled 2^12 BN254 proofs
+BN_PROOF_REPS = 2       # phase 13's timed 2^12 BN254 proofs
 
 
 def staged_proofs(mod, prove, prims, call, reps: int):
@@ -881,10 +911,17 @@ def bn254_phases(dev, card: str, profile: bool):
     small = []
     sel8, cp8, a8, b8, c8 = bn254_mul_circuit(N_BN_SMALL)
     for d in ("cpu", dev):
-        c_ = PB.bn254_setup(N_BN_SMALL, secret=BN_SECRET, device=d)
-        ctx8 = c_
-        proof, diags = PB.make_prover_bn254(c_, sel8, cp8)(
-            a8, b8, c8, words_vec(BN_CH), words_vec(BN_RND))
+        # each device computes its own SRS and window table under empty
+        # caches of its own, and commits through the table, as the card
+        # does by default (the CPU's default is GLV, phase 33's)
+        own = os.path.join(CACHE_DIR, f"n8_{torch.device(d).type}")
+        shutil.rmtree(own, ignore_errors=True)
+        with switches(PLONK_TPU_BN254_FB="1", PLONK_TPU_CACHE=own,
+                      HOME=own):
+            c_ = PB.bn254_setup(N_BN_SMALL, secret=BN_SECRET, device=d)
+            ctx8 = c_
+            proof, diags = PB.make_prover_bn254(c_, sel8, cp8)(
+                a8, b8, c8, words_vec(BN_CH), words_vec(BN_RND))
         check(bool(diags.all_ok()), f"n=8 diagnostics on {d}")
         small.append(proof)
     p_cpu, p_gpu = small
@@ -912,26 +949,19 @@ def bn254_phases(dev, card: str, profile: bool):
     check(bool(diags.all_ok()), f"2^12 diagnostics {diags}")
     for name in BN254_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched by the prove")
+    # the proof's verify, and a tampered proof's rejection, are lanes of
+    # phase 31's verify_bn254_many (the same G1 algebra and pairings)
     vk, timings["bn_vk_s"] = wall(lambda: PB.make_vk_bn254(ctx, sel, cp))
-    ok, timings["bn_verify_s"] = wall(
-        lambda: PB.verify_bn254(ctx, vk, proof, ch))
-    bad = proof._replace(r_z=torch.as_tensor(words_vec(
-        [(from_words(proof.r_z.cpu()) + 1) % BN254_FR.p])[0].astype(
-            np.int64), device=dev))
-    rejected = not PB.verify_bn254(ctx, vk, bad, ch)
-    print(f"diags.all_ok True; verify {ok} ({timings['bn_verify_s']:.3f} "
-          f"s); tampered r_z rejected {rejected}")
-    check(ok and rejected, "BN254 verify accepts and rejects the tampered "
-          "proof")
+    print(f"diags.all_ok True; make_vk_bn254 {timings['bn_vk_s']:.3f} s")
 
     phase("13 BN254 timings")
     rnd_rep = lambda rep: words_vec([v + 100 + 9 * rep for v in BN_RND])
     t = time.perf_counter()
-    for rep in range(PROOF_REPS):
+    for rep in range(BN_PROOF_REPS):
         _, d = prover(a, b, c, ch, rnd_rep(rep))
         check(bool(d.all_ok()), f"BN254 rep {rep} diagnostics")
     torch.cuda.synchronize()
-    timings["bn_proofs_per_s"] = PROOF_REPS / (time.perf_counter() - t)
+    timings["bn_proofs_per_s"] = BN_PROOF_REPS / (time.perf_counter() - t)
     proof_s = 1 / timings["bn_proofs_per_s"]
     prims = PB._local_prims(ctx)
     pre = PB.precompute_bn254(ctx, sel, cp, prims)
@@ -965,8 +995,7 @@ def bn254_phases(dev, card: str, profile: bool):
           f"they select: {entries}")
     print_kernel_times(kms)
     reuse = dict(ctx8=ctx8, ctx=ctx, circuit=(sel, cp, a, b, c),
-                 prover=prover, proof=proof, vk=vk,
-                 verify_s=timings["bn_verify_s"])
+                 prover=prover, proof=proof, vk=vk)
     return (kernel_entries(BN254_KERNELS, kms, launches, errs, bounds),
             timings, reuse)
 
@@ -1659,14 +1688,8 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
     check(seen <= tested, f"every exchange of the proof checked in phase "
           f"17: {sorted(seen - tested)}")
     print(f"both sharded proofs equal phase 6's proof; {len(seen)} "
-          "exchange shapes, each checked in phase 17")
-    for exchange in ("cuda", "plain"):
-        ev = fresh_events(f"proof-{exchange}")
-        print(f"sharded {exchange}, torch.profiler in a fresh process: "
-              f"{ev['events']:.1f} device events and {ev['device_ms']:.3f} "
-              f"ms of device time per proof; profiled proof "
-              f"{ev['profiled_ms']:.3f} ms; {ev['proofs_per_s']:.6f} "
-              f"proofs/s ({PROOF_REPS} synchronised proofs)")
+          "exchange shapes, each checked in phase 17 (device events of a "
+          "sharded proof: --dist-events proof-cuda|proof-plain)")
 
     phase("19 proofs/s of the default and sharded prims in turns, kernel "
           "times")
@@ -1824,6 +1847,7 @@ FS_REPS = 1              # synchronised proofs of each prover, in turns
 MANY_B = 4               # lanes of phase 24's verify_scaled_many
 DIGEST_HOST_M = 1 << 12  # public inputs digested by the host oracle
 CACHE_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_cache")
+HOME_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_home")
 
 
 def fs_launches(launches: dict, nonce: int) -> bool:
@@ -1921,23 +1945,15 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
               f"s, {ref} {ref_s:.3f} s, equal {got == want}")
         check(got == want, f"the card's tree_digest equals {ref}")
     rnds = np.stack([np.array(RND) + 9 * (i + 1) for i in range(MANY_B)])
-    for name, run in (
-            ("permute of one (8,) state",
-             lambda rep: PO.permute(Fr, pos, Fr.ones((8,), dev))),
-            ("poseidon proof", lambda rep: fsp.prove(a, b, c, rnds[0])),
-            ("blake2b proof", lambda rep: fs.prove(a, b, c, rnds[0])),
-            ("make_prover proof",
-             lambda rep: ref_prover(a, b, c, CH, rnds[0]))):
-        n_dev, dev_us, _, top = profiled_proofs(run, 1)
-        print(f"torch.profiler, {name}: {n_dev:.0f} device events, "
-              f"{dev_us / 1e3:.3f} ms of device time; top "
-              f"{[(k[:40], round(us / 1e3, 3)) for k, us in top[:3]]}")
+    n_dev, dev_us, _, top = profiled_proofs(
+        lambda rep: PO.permute(Fr, pos, Fr.ones((8,), dev)), 1)
+    print(f"torch.profiler, permute of one (8,) state: {n_dev:.0f} device "
+          f"events, {dev_us / 1e3:.3f} ms of device time; top "
+          f"{[(k[:40], round(us / 1e3, 3)) for k, us in top[:3]]}")
 
     phase(f"24 verify_scaled_many at B = {MANY_B}")
     proofs = [ref_prover(a, b, c, CH, r)[0] for r in rnds]
     chs = np.array([CH] * MANY_B)
-    flags, times["verify_many_s"] = wall(
-        lambda: PS.verify_scaled_many(ctx, vk, PS.stack_proofs(proofs), chs))
     proofs[2] = proofs[2]._replace(r_z=(proofs[2].r_z + 1) % Fr.p)
     flags_bad, times["verify_many_tampered_s"] = wall(
         lambda: PS.verify_scaled_many(ctx, vk, PS.stack_proofs(proofs), chs))
@@ -1945,14 +1961,13 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
     single = [PS.verify_scaled(ctx, vk, p, CH) for p in proofs]
     torch.cuda.synchronize()
     times["verify_4_singles_s"] = time.perf_counter() - t
-    print(f"distinct blinding: {flags.tolist()} "
-          f"({times['verify_many_s']:.3f} s); lane 2 tampered: "
-          f"{flags_bad.tolist()} ({times['verify_many_tampered_s']:.3f} "
-          f"s); verify_scaled of each lane {single} "
-          f"({times['verify_4_singles_s']:.3f} s for {MANY_B})")
-    check(flags.tolist() == [True] * MANY_B, "every honest lane accepted")
+    print(f"distinct blinding, lane 2 tampered: {flags_bad.tolist()} "
+          f"({times['verify_many_tampered_s']:.3f} s); verify_scaled of "
+          f"each lane {single} ({times['verify_4_singles_s']:.3f} s for "
+          f"{MANY_B})")
     check(flags_bad.tolist() == single == [True, True, False, True],
-          "only the tampered lane is rejected, as verify_scaled says")
+          "the honest lanes accepted, only the tampered one rejected, as "
+          "verify_scaled says")
 
     phase("25 proof and SRS bytes, the window table's disk cache, the "
           "checked prover")
@@ -2152,8 +2167,13 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
     prover = bn["prover"]
     a, b, c = bn["circuit"][2:]
     fs, ((out, _),), _, _ = bn254_fs_checks(
-        "blake2b", FS.BN254FsProver, FS.verify_bn254_fs, bn, times,
-        [(a, b, c, rnd)])
+        "blake2b", FS.BN254FsProver,
+        lambda *args: FS._bn254_derive_from_proof(FS.BN254_LABEL, *args),
+        bn, times, [(a, b, c, rnd)])
+    ok, times["blake2b_verify_s"] = wall(
+        lambda: FS.verify_bn254_fs(bn["ctx"], fs.vk, out))
+    print(f"verify_bn254_fs {ok} ({times['blake2b_verify_s']:.3f} s)")
+    check(ok, "verify_bn254_fs accepts the BLAKE2b proof")
     print(f"card: {card}")
     total = collections.Counter()
     for rep in range(BN_FS_REPS):
@@ -2173,14 +2193,16 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
     return out
 
 
-def bn254_fs_checks(kind, make, verify, bn, times: dict, lanes):
+def bn254_fs_checks(kind, make, replay, bn, times: dict, lanes):
     """Phases 28 and 31's checks of a BN254 FS prover on the 2^12 context
     of phases 10-12: its vk equal to make_vk_bn254's; one proof (lanes: a
     list of one (a, b, c, rand9)) or one prove_many over the lanes, K3 and
-    K4 launches counted exactly; diagnostics; each lane's proof equal to
-    make_prover_bn254's single proof for its challenges; verify accepts
-    lane 0. Returns (prover, [(FS proof, diags)],
-    [make_prover_bn254's proof of each lane], their seconds)."""
+    K4 launches counted exactly; diagnostics; every lane's challenges
+    equal to the host replay of its transcript (replay(ctx, vk points,
+    proof, nonce)); lane 0's proof equal to make_prover_bn254's single
+    proof for its challenges. The pairing checks of the lanes are phase
+    31's verify_bn254_many. Returns (prover, [(FS proof, diags)], lane
+    0's make_prover_bn254 proof, its seconds)."""
     ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
     fs, times[f"{kind}_build_s"] = wall(lambda: make(ctx, *bn["circuit"][:2]))
     check(all(torch.equal(x, y) for p, q in zip(fs.vk, vk)
@@ -2199,19 +2221,18 @@ def bn254_fs_checks(kind, make, verify, bn, times: dict, lanes):
           f"{times[f'{kind}_first_proof_s']:.3f} s, nonces "
           f"{[o.nonce for o, _ in outs]}, launches {launches}")
     check(bn254_fs_launches(launches), f"{kind} K3/K4 launches")
-    singles, single_s = [], []
-    for (out, diags), (a, b, c, rnd) in zip(outs, lanes):
+    t = time.perf_counter()
+    for out, diags in outs:
         check(bool(diags.all_ok()), f"{kind} 2^12 diagnostics {diags}")
-        (interactive, d), sec = wall(lambda: prover(a, b, c, out.challenge,
-                                                    rnd))
-        check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
-              f"{kind} proof equals make_prover_bn254's for its challenges")
-        singles.append(interactive)
-        single_s.append(sec)
-    ok, times[f"{kind}_verify_s"] = wall(lambda: verify(ctx, fs.vk,
-                                                        outs[0][0]))
-    check(ok, f"{kind} verify accepts")
-    return fs, outs, singles, single_s
+        check(np.array_equal(replay(ctx, list(fs.vk), out.proof, out.nonce),
+                             out.challenge),
+              f"{kind}: the challenges equal the host replay's")
+    times[f"{kind}_replays_s"] = time.perf_counter() - t
+    (out, _), (a, b, c, rnd) = outs[0], lanes[0]
+    (single, d), single_s = wall(lambda: prover(a, b, c, out.challenge, rnd))
+    check(bool(d.all_ok()) and proofs_equal(single, out.proof),
+          f"{kind} proof equals make_prover_bn254's for its challenges")
+    return fs, outs, single, single_s
 
 
 N_BATCH = 1 << 12        # phase 29's gates (bench.py's bench_scaled_batched)
@@ -2482,14 +2503,14 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
     10-12, lanes the witnesses of bn254_mul_circuit seeds 11 + i with
     bench.py's blinding variants 17 + 31 i + j: BN254PoseidonFsProver.
     prove_many at B = BN_BATCH (K3 4, K4 4 a batch; prove() is
-    prove_many of one lane), every lane equal to make_prover_bn254's
-    single proof for its derived challenges, verify_bn254_fs_poseidon of
-    lane 0; make_prover_bn254 on the batch with those challenges (K3 4,
-    K4 1) equal lane by lane; K3 and K4 at the batch's shapes against
-    their plain versions (bn_batch_kernels); verify_bn254_many on
-    [phase 12's proof, phase 28's BLAKE2b proof, the B lanes, the BLAKE2b
-    proof with [a] replaced] -> [T, ..., T, F], each lane's challenges
-    replayed on the host first; batch and single times."""
+    prove_many of one lane), each lane's challenges replayed on the host,
+    lane 0 equal to make_prover_bn254's single proof for its challenges
+    and verified by verify_bn254_fs_poseidon; make_prover_bn254 on the
+    batch with those challenges (K3 4, K4 1) equal to the FS lanes; K3
+    and K4 at the batch's shapes against their plain versions
+    (bn_batch_kernels); verify_bn254_many on [phase 12's proof, phase
+    28's BLAKE2b proof, the B lanes, the BLAKE2b proof with [a] replaced]
+    -> [T, ..., T, F]; batch and single times."""
     phase(f"31 BN254 batches at 2^12 gates: Poseidon prove_many and "
           f"make_prover_bn254 at B = {BN_BATCH}, verify_bn254_many")
     ctx, vk, prover = bn["ctx"], bn["vk"], bn["prover"]
@@ -2499,31 +2520,27 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
             for i in range(BN_BATCH)]
     lanes = [(*w, r) for w, r in zip(wits, rnds)]
     times = {}
-    fsp, many, singles, single_s = bn254_fs_checks(
-        "poseidon", FSP.BN254PoseidonFsProver, FSP.verify_bn254_fs_poseidon,
-        bn, times, lanes)
-    # every lane through verify_bn254_many: the host replay of its
-    # transcript, then the one batched verify below
-    t = time.perf_counter()
-    for out, _ in many:
-        check(np.array_equal(FSP.derive_bn254_challenges_host(
-            ctx, list(fsp.vk), out.proof, out.nonce), out.challenge),
-            "each lane's challenges equal the host replay's")
-    times["poseidon_replays_s"] = time.perf_counter() - t
+    fsp, many, single, single_s = bn254_fs_checks(
+        "poseidon", FSP.BN254PoseidonFsProver,
+        FSP.derive_bn254_challenges_host, bn, times, lanes)
+    ok, times["poseidon_verify_s"] = wall(
+        lambda: FSP.verify_bn254_fs_poseidon(ctx, fsp.vk, many[0][0]))
+    check(ok, "verify_bn254_fs_poseidon accepts lane 0")
     a, b, c, rnd = (np.stack(x) for x in zip(*lanes))
     chs = np.stack([o.challenge for o, _ in many])
     kernels.reset_counts()
     (proof, diags), batch_s = wall(lambda: prover(a, b, c, chs, rnd))
     launches = dict(kernels.LAUNCHES)
     print(f"make_prover_bn254 on the batch: {batch_s:.3f} s, launches "
-          f"{launches}; its {BN_BATCH} single proofs "
-          f"{[round(x, 3) for x in single_s]} s")
+          f"{launches}; lane 0's single proof {single_s:.3f} s")
     check(launches == {"big_row": 4, "big_commit": 1},
           "a batch launches K3 and K4 as one proof does (4, 1)")
     check(bool(diags.all_ok()) and all(
-        proofs_equal(FSP._lane(proof, i), one)
-        for i, one in enumerate(singles)),
-        "every lane of the batch equals its single proof")
+        proofs_equal(FSP._lane(proof, i), out.proof)
+        for i, (out, _) in enumerate(many))
+        and proofs_equal(FSP._lane(proof, 0), single),
+        "every lane of the batch equals its FS lane, lane 0 its single "
+        "proof")
     bn_batch_kernels(dev, ctx)
     proofs = ([bn["proof"], blake.proof] + [o.proof for o, _ in many]
               + [blake.proof._replace(a_s=blake.proof.b_s)])
@@ -2540,10 +2557,250 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
     print(f"proofs_per_s BN254 Poseidon prove_many of {BN_BATCH} "
           f"{BN_BATCH / times['poseidon_first_proof_s']:.6f}; "
           f"make_prover_bn254 batch of {BN_BATCH} {BN_BATCH / batch_s:.6f}, "
-          f"single {len(single_s) / sum(single_s):.6f} (synchronised, in "
-          "this order)")
+          f"single {1 / single_s:.6f} (synchronised, in this order)")
     for key, v in times.items():
         print(f"{key} {v:.6f}")
+
+
+MSM_N = 1 << 14          # phase 32's points (bench.py's bench_bn254_msm)
+MSM_TIMED = 2            # phase 32's timed calls a kind, after a warm one
+MSM_KINDS = {"pippenger": lambda F, pts, w: BC.big_msm_pippenger(F, pts, w),
+             "glv": lambda F, pts, w: GLV.big_msm_glv(F, pts, w)}
+MSM_PROFILED = ("glv",)  # kinds whose warm call torch.profiler reads (its
+                         # trace takes ~60 us an event to parse)
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """The environment variables `env` (the PLONK_TPU_* switches, the
+    cache roots) set for the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def refusing(module, *names):
+    """module.<name> raises for the block: shows that a cached value was
+    loaded and not computed."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def refuse(*args, **kw):
+        raise RuntimeError("computed where the cache should have served")
+    try:
+        for n in names:
+            setattr(module, n, refuse)
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def dispatches(fn) -> int:
+    """The PyTorch operator calls of fn() (each launches at most one device
+    kernel), counted by a dispatch mode around it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def affine_ints(F, out) -> list:
+    """(x, y) python ints of each point of a Jacobian batch, None at
+    infinity (one batched inversion)."""
+    x, y, inf = BC.big_to_affine(F, BC.BigG1J(*(c.reshape(-1, F.limbs)
+                                                 for c in out)))
+    xs, ys = F.decode_host(x), F.decode_host(y)
+    return [None if bool(i) else (int(a), int(b))
+            for a, b, i in zip(xs, ys, inf.tolist())]
+
+
+def msm_phase(dev, card: str) -> None:
+    """Phase 32: plain Pippenger and GLV at MSM_N points in the JAX
+    package's bench_bn254_msm configuration (every base the generator,
+    scalars from default_rng(0), below r, 8-bit windows), each equal to
+    (sum s_i mod r) G from a host ladder; points/s over MSM_TIMED distinct
+    rolls of the scalars after a warm call, whose peak memory is taken
+    and which torch.profiler reads for the kinds of MSM_PROFILED (device
+    events and device time); no kernel launched; the window combination
+    (Horner's rule) timed alone, with its operator calls."""
+    phase(f"32 BN254 MSM at {MSM_N} points (bench_bn254_msm): plain "
+          "Pippenger and GLV")
+    Fq = BigMontField(BC.BN254_FQ)
+    words = np.random.default_rng(0).integers(0, 1 << 16, size=(MSM_N, 16))
+    words[:, 15] &= 0x0FFF
+    pts = BC.bn254_generator(Fq, (MSM_N,), dev)
+    total = sum(from_words(w) for w in words) % BN254_FR.p
+    want = GLV._HostG1(Fq.p).mul(BC.BN254_G1_GEN, total)
+    rolls = [torch.as_tensor(np.roll(words, i, axis=0), device=dev)
+             for i in range(1 + MSM_TIMED)]
+    g1 = BC.bn254_generator(Fq, (1,), dev)
+    BC.big_jac_add(Fq, g1, g1)          # constants made before counting
+    dbl_n = dispatches(lambda: BC.big_jac_double(Fq, g1))
+    add_n = dispatches(lambda: BC.big_jac_add(Fq, g1, g1))
+    wb = 8
+    rates = {}
+    for name, msm in MSM_KINDS.items():
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        first = []
+        warm = lambda rep: first.append(msm(Fq, pts, rolls[0]))
+        if name in MSM_PROFILED:
+            n_dev, dev_us, warm_s, _ = profiled_proofs(warm, 1)
+        else:
+            _, warm_s = wall(lambda: warm(0))
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for w in rolls[1:]:
+            outs.append(msm(Fq, pts, w))
+        torch.cuda.synchronize()
+        call_s = (time.perf_counter() - t) / MSM_TIMED
+        got = affine_ints(Fq, BC.BigG1J(*(torch.stack(c) for c in zip(
+            *first, *outs))))
+        check(got == [want] * (1 + MSM_TIMED),
+              f"{name} MSM at {MSM_N} points == (sum s_i) G, every roll")
+        check(launches == {}, f"{name} launches none of K1-K9")
+        rates[name] = MSM_N / call_s
+        W = -(-(254 if name == "pippenger" else 131) // wb)
+        wtot = BC.BigG1J(*(c.expand(1, W, Fq.limbs)
+                           for c in BC.bn254_generator(Fq, (1, 1), dev)))
+        _, horner_s = wall(lambda: BC.combine_windows(Fq, wtot, wb))
+        print(f"{name}: {call_s:.3f} s a call over {MSM_TIMED} distinct "
+              f"rolls, {rates[name]:.1f} points/s; warm call {warm_s:.3f} s"
+              f"; peak memory {peak:.3f} GiB; K1-K9 launches {launches}; "
+              f"the window combination ({W - 1} x ({wb} doublings + 1 "
+              f"addition): {(W - 1) * (wb * dbl_n + add_n)} operator calls "
+              f"at {dbl_n} a doubling and {add_n} an addition) "
+              f"{horner_s:.3f} s alone")
+        if name in MSM_PROFILED:
+            print(f"{name}'s warm call under torch.profiler: {n_dev:.0f} "
+                  f"device events and {dev_us / 1e3:.3f} ms of device time,"
+                  f" against the mean timed call (unprofiled, the same "
+                  f"shapes, other rolls of the scalars: two runs), the "
+                  f"device idle {100 * (1 - dev_us / 1e6 / call_s):.1f} % "
+                  f"and {call_s * 1e6 / max(n_dev, 1):.3f} us of host a "
+                  "device event")
+    print(f"card: {card}")
+    print(f"bn254_msm_2e14_points_per_s {rates['pippenger']:.3f}; "
+          f"bn254_msm_glv_2e14_points_per_s {rates['glv']:.3f} (GLV "
+          f"{rates['glv'] / rates['pippenger']:.3f}x)")
+
+
+def commit_routes_phase(dev, card: str, bn: dict) -> None:
+    """Phase 33 on the 2^12 context, table, circuit, proof and vk of
+    phases 10-12: the JAX package's check_bn254_pallas_commit_parity (K4
+    at B = 9 against _commit_many by GLV and by plain Pippenger on the
+    same scalars, affine-equal) with each route's call timed and the
+    peak memory of each _commit_many call; then
+    make_vk_bn254 and a make_prover_bn254 proof under
+    PLONK_TPU_BN254_FB=0 (no table), equal word for word to phase 12's,
+    the proof launching K3 4 and K4 0 times and the vk no K4."""
+    phase("33 the BN254 commit routes at 2^12 gates: K4 vs GLV vs "
+          "Pippenger at B = 9, vk and proof under PLONK_TPU_BN254_FB=0")
+    ctx = bn["ctx"]
+    Fr = ctx.Fr
+    L = ctx.srs.length
+    sc = np.random.default_rng(0).integers(0, 1 << 16, size=(9, L, 16))
+    sc[..., 15] &= 0x0FFF                     # < r
+    polys = list(Fr.encode(torch.as_tensor(sc, device=dev)).unbind(0))
+    kernels.reset_counts()
+    k4, k4_s = wall(lambda: PB.bn254_table_commit(ctx)(polys))
+    check(kernels.LAUNCHES == {"big_commit": 1}, "the table route: one K4")
+    routes, peaks = {}, {}
+    for glv in ("1", "0"):
+        with switches(PLONK_TPU_BN254_GLV=glv):
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            routes[glv] = wall(lambda: PB._commit_many(ctx, polys))
+            peaks[glv] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            check(kernels.LAUNCHES == {}, "_commit_many launches no kernel")
+    for glv, (out, _) in routes.items():
+        check(all(torch.equal(a, b) for a, b in zip(out, k4)),
+              f"K4 == _commit_many (PLONK_TPU_BN254_GLV={glv}) at B = 9, "
+              "affine words")
+    print(f"B = 9, L = {L}: K4 == GLV == Pippenger (affine words); commit "
+          f"calls: the table route (K4 and the affine conversion) "
+          f"{k4_s:.3f} s, GLV {routes['1'][1]:.3f} s, plain Pippenger "
+          f"{routes['0'][1]:.3f} s; peak memory above what was allocated "
+          f"before the call: GLV {peaks['1']:.3f} GiB, plain Pippenger "
+          f"{peaks['0']:.3f} GiB")
+    sel, cp, a, b, c = bn["circuit"]
+    with switches(PLONK_TPU_BN254_FB="0"):
+        kernels.reset_counts()
+        vk, vk_s = wall(lambda: PB.make_vk_bn254(ctx, sel, cp))
+        vk_launches = dict(kernels.LAUNCHES)
+        prover, make_s = wall(lambda: PB.make_prover_bn254(ctx, sel, cp))
+        kernels.reset_counts()
+        (proof, diags), proof_s = wall(lambda: prover(
+            a, b, c, words_vec(BN_CH), words_vec(BN_RND)))
+        launches = dict(kernels.LAUNCHES)
+    check("big_commit" not in vk_launches, "the vk without K4")
+    check(launches == {"big_row": 4},
+          f"the GLV-committed proof launches K3 4, K4 0: {launches}")
+    check(bool(diags.all_ok()) and proofs_equal(proof, bn["proof"]),
+          "the PLONK_TPU_BN254_FB=0 proof == phase 12's, word for word")
+    check(all(torch.equal(x, y) for p, q in zip(vk, bn["vk"])
+              for x, y in zip(p, q)),
+          "the PLONK_TPU_BN254_FB=0 vk == phase 12's, word for word")
+    print(f"PLONK_TPU_BN254_FB=0: make_vk_bn254 {vk_s:.3f} s (launches "
+          f"{vk_launches}), make_prover_bn254 {make_s:.3f} s, the proof "
+          f"{proof_s:.3f} s with launches {launches}; proof and vk equal "
+          "phase 12's (the table route's)")
+    print(f"card: {card}")
+
+
+def cache_phase(dev, card: str, bn: dict, timings: dict) -> None:
+    """Phase 34: phase 10 wrote the 2^12 SRS (under HOME) and its window
+    table (under PLONK_TPU_CACHE), both emptied at the start; a fresh
+    bn254_setup and a fresh context's table load them, computing nothing,
+    and their words equal phase 10's, the packed table K4 reads too."""
+    phase("34 the BN254 SRS and window-table disk caches: a fresh context "
+          "loads phase 10's files")
+    ctx = bn["ctx"]
+    srs_path = os.path.join(HOME_DIR, ".cache", "plonk_tpu",
+                            f"bn254_srs_n{N_BN}_s{BN_SECRET}.npz")
+    tbl_path = PB._fb_cache_path(ctx, PB.bn254_fb_window_bits())
+    check(os.path.exists(srs_path) and os.path.exists(tbl_path),
+          "phase 10 wrote both cache files")
+    with refusing(PB, "big_fixed_base_mul_many", "build_big_table"):
+        ctx2, srs_s = wall(lambda: PB.bn254_setup(N_BN, secret=BN_SECRET,
+                                                  device=dev))
+        tbl2, tbl_s = wall(lambda: PB.bn254_fixed_base_table(ctx2))
+    check(all(torch.equal(x, y) for x, y in zip(
+        tuple(ctx2.srs.g1s) + tuple(ctx2.srs[1:5]),
+        tuple(ctx.srs.g1s) + tuple(ctx.srs[1:5])))
+        and ctx2.srs.length == ctx.srs.length,
+        "the loaded SRS == phase 10's, words equal")
+    tbl = PB.bn254_fixed_base_table(ctx)
+    check(all(torch.equal(x, y) for x, y in zip(tbl2[:3], tbl[:3]))
+          and torch.equal(PB.bn254_packed_table(ctx2),
+                          PB.bn254_packed_table(ctx)),
+          "the loaded table == phase 10's, and its packed form")
+    print(f"SRS file {os.path.getsize(srs_path)} bytes, loaded in "
+          f"{srs_s:.3f} s (built in {timings['bn_setup_s']:.3f} s); table "
+          f"file {os.path.getsize(tbl_path)} bytes, loaded and packed in "
+          f"{tbl_s:.3f} s (built, packed and written in "
+          f"{timings['bn_table_build_s']:.3f} s); words equal")
+    print(f"card: {card}")
 
 
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
@@ -2864,6 +3121,11 @@ def main() -> None:
     # phase 4 builds its table and phase 25 loads it
     shutil.rmtree(CACHE_DIR, ignore_errors=True)
     os.environ["PLONK_TPU_CACHE"] = CACHE_DIR
+    # the BN254 SRS cache (~/.cache/plonk_tpu, as in the JAX package) under
+    # an empty HOME in the checkout, so that phase 10 writes and phase 34
+    # loads it
+    shutil.rmtree(HOME_DIR, ignore_errors=True)
+    os.environ["HOME"] = HOME_DIR
     dev = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2958,7 +3220,7 @@ def main() -> None:
                       1 / timings["proofs_per_s"])
     bounds = k12_bounds(k1_inputs, k2_inputs)
     entries = kernel_entries(KERNELS, kms, launches, errs, bounds)
-    bn_entries, _, bn = bn254_phases(dev, card, args.profile)
+    bn_entries, bn_timings, bn = bn254_phases(dev, card, args.profile)
     pr_entries = prims_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
                               prover)
     dist_entries = dist_phases(dev, card, ctx, (sel, cp, a, b, c), proof,
@@ -2969,6 +3231,9 @@ def main() -> None:
     scaled_batch_phase(dev, card)
     fs_batch_phase(dev, card, ctx, fsp)
     bn254_batch_phase(dev, card, bn, blake)
+    msm_phase(dev, card)
+    commit_routes_phase(dev, card, bn)
+    cache_phase(dev, card, bn, bn_timings)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries

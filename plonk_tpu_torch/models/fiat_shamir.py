@@ -310,8 +310,9 @@ def _bn254_derive_from_proof(label: bytes, ctx, vk_points, proof,
 
 class _BN254Stages:
     """What both BN254 FS provers share: the prims (default
-    PB._local_prims, commitments through the window table, K4 on the
-    card), the verifying key and the circuit tables, made once."""
+    PB._local_prims: commitments through the window table, K4 on the
+    card, or PB._commit_many, as PB.use_bn254_fixed_base says), the
+    verifying key and the circuit tables, made once."""
 
     def __init__(self, ctx, selectors, copies, prims=None):
         self.ctx = ctx
@@ -339,7 +340,8 @@ class _BN254Stages:
 class BN254FsProver(_BN254Stages):
     """Non-interactive BN254 prover: each proof runs the four stages of
     plonk_bn254 on the context's device, each committing its own
-    polynomials through K4 (B = 3, 1, 3, 2), and hashes on the host in
+    polynomials (B = 3, 1, 3, 2: one K4 launch each on the table route),
+    and hashes on the host in
     between. Usage:
 
         fs = BN254FsProver(ctx, selectors, copies)

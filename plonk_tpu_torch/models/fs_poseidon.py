@@ -380,10 +380,11 @@ def _bn254_device_point_elements(F, pts) -> list:
 
 class BN254PoseidonFsProver(_BN254Stages):
     """Non-interactive prover for a fixed BN254 circuit with the 16-limb
-    sponge on the context's device. The verifying key, window table,
-    circuit tables, post-preamble sponge state and the digest of all-zero
-    public inputs are made once. Each proof runs the four stages of
-    plonk_bn254 (K3 in the quotient, K4 once a round: B = 3, 1, 3, 2);
+    sponge on the context's device. The verifying key, the window table
+    (on the table route), circuit tables, post-preamble sponge state and
+    the digest of all-zero public inputs are made once. Each proof runs
+    the four stages of plonk_bn254 (K3 in the quotient, a commitment call
+    a round: B = 3, 1, 3, 2, one K4 launch each on the table route);
     only the retry test and the squeezes' rejection tests read a flag
     back.
 

@@ -2,11 +2,27 @@
 
 Port of `plonk_tpu/models/plonk_bn254.py` (single device): the 5-round
 protocol of the scaled prover lifted to 254-bit fields. Scalars are
-BN254-Fr word tensors (`ops/bigfield.py`), commitments are fixed-base
-MSMs against the SRS window table (K4, `ops/bigcommit.py`, on a CUDA
-device), every 4n-coset transform is the four-step transform whose row
-passes are K3 (`ops/bigntt.py`), and verification runs real optimal-ate
-pairings over the Fq12 tower (`ops/bigpairing.py`).
+BN254-Fr word tensors (`ops/bigfield.py`), every 4n-coset transform is
+the four-step transform whose row passes are K3 (`ops/bigntt.py`), and
+verification runs real optimal-ate pairings over the Fq12 tower
+(`ops/bigpairing.py`).
+
+Commitments take one of two routes, chosen as the JAX package chooses:
+- the window table: fixed-base MSMs against the SRS's window table (K4,
+  `ops/bigcommit.py`, on a CUDA device; its plain version on the CPU),
+  when `use_bn254_fixed_base()` holds (PLONK_TPU_BN254_FB=1, or unset on
+  a CUDA context), with `bn254_fb_window_bits()`-bit windows
+  (PLONK_TPU_BN254_FB_WB, default 4);
+- `_commit_many`: bucket MSMs over the SRS points, GLV-split
+  (`ops/glv.py`) or plain Pippenger under PLONK_TPU_BN254_GLV=0
+  (`ops/bigcurve.py`), no table.
+`_local_prims` takes that switch for every BN254 entry point:
+make_prover_bn254, make_vk_bn254 and both Fiat-Shamir provers. The JAX
+package commits its verifying keys and its FS provers by GLV whatever
+the switch says; the route differs, the points are the same.
+
+The SRS (`bn254_setup`) and the window table are cached on disk in the
+JAX package's files and fields, so each package loads the other's.
 
 Shapes: a field element is a (16,) tensor of 16-bit words; a polynomial
 is (n, 16) with the coefficient axis at -2. Witnesses, challenges and
@@ -17,17 +33,18 @@ package's prover: (B, n, 16) witness columns with (B, 5, 16) challenges
 and (B, 9, 16) blinding give B proofs in stack_proofs' layout and (B,)
 diagnostics. A per-lane scalar (B, 16) meets a (B, L, 16) polynomial as
 `_col(s)`, (B, 1, 16); the circuit-fixed tables stay unbatched. The batch
-folds into the rows of K3 and K4, so a batch launches them as often as
-one proof does. The device of the context's SRS is where a proof runs.
-The Fiat-Shamir provers over this module's stages are in
-models/fiat_shamir.py and models/fs_poseidon.py.
-Left for later (ROADMAP): the SRS and table disk caches, GLV and
-Pippenger commitments, the sharded prover.
+folds into the rows of K3 and of the commitments, so a batch launches K3
+and K4 as often as one proof does. The device of the context's SRS is
+where a proof runs. The Fiat-Shamir provers over this module's stages
+are in models/fiat_shamir.py and models/fs_poseidon.py.
+Left for later (ROADMAP): the sharded prover.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -38,20 +55,23 @@ from ..ops import bigpairing as BPair
 from ..ops.bigcommit import big_commit_many, pack_commit_table
 from ..ops.bigcurve import (BN254_FQ, BigFixedBaseTable, BigG1J,
                             affine_to_jac, big_fixed_base_mul_many,
-                            big_jac_add, big_jac_mul, big_to_affine,
-                            bn254_generator, build_big_table, scalar_to_bits)
+                            big_jac_add, big_jac_mul, big_msm_pippenger_many,
+                            big_to_affine, bn254_generator, build_big_table,
+                            scalar_to_bits)
 from ..ops.bigfield import BigMontField, big_intt
 from ..ops.bigntt import big_fused_intt, big_fused_ntt
 from ..ops.fused_ntt import scrambled_perm
+from ..ops.glv import big_msm_glv_many
 from ..ops.tower import f12_eq, f12_mul, f12_one
+from ..utils.diskcache import cache_root, load_npz, save_npz
 from ..utils.kernels import resolve_device
 from ..utils.params import BN254_FR
 
 I64 = torch.int64
 FR_BITS = 254
 FR_WORDS = 16
-COMMIT_WINDOW_BITS = 4      # the JAX default (PLONK_TPU_BN254_FB_WB)
 SRS_WINDOW_BITS = 4
+MSM_WINDOW_BITS = 8         # _commit_many's windows, the JAX package's
 
 
 class BigG1Affine(NamedTuple):
@@ -196,14 +216,21 @@ def _generator_table(device: str) -> BigFixedBaseTable:
                            SRS_WINDOW_BITS, FR_BITS)
 
 
-def bn254_setup(n: int, secret: int = 20260817,
-                device=None) -> BN254Context:
+def bn254_setup(n: int, secret: int = 20260817, device=None,
+                cache: bool = True) -> BN254Context:
     """Trusted setup: the tau-power SRS over BN254 (length n + 5) on
     `device` (default: the CUDA card; pass device="cpu" for the CPU).
     The G1 powers come from a one-point window table of the generator;
     the JAX package uses 8-bit windows there, this port 4-bit ones (the
-    points are the same). No disk cache."""
+    points are the same). With `cache` the SRS is read from, or written
+    to, the JAX package's file ~/.cache/plonk_tpu/bn254_srs_n{n}_s{secret}
+    .npz (uint32 Montgomery words; not under $PLONK_TPU_CACHE, as in the
+    JAX package)."""
     device = resolve_device(device)
+    path = os.path.join(os.path.expanduser("~/.cache/plonk_tpu"),
+                        f"bn254_srs_n{n}_s{secret}.npz")
+    if cache and os.path.exists(path):
+        return BN254Context(srs=_srs_disk_load(path, device), n=n)
     r = BN254_FR.p
     Fq = BigMontField(BN254_FQ)
     tau = secret % r
@@ -224,7 +251,23 @@ def bn254_setup(n: int, secret: int = 20260817,
     g2_sx, g2_sy, _ = BPair.g2_to_affine(Fq, g2s)
     srs = BN254SRS(g1s=g1s, g2_1x=g2_1x, g2_1y=g2_1y, g2_sx=g2_sx,
                    g2_sy=g2_sy, length=length)
+    if cache:
+        u32 = lambda t: t.cpu().numpy().astype(np.uint32)
+        save_npz(path, x=u32(g1s.x), y=u32(g1s.y),
+                 inf=g1s.inf.cpu().numpy().astype(bool),
+                 g2_1x=u32(g2_1x), g2_1y=u32(g2_1y), g2_sx=u32(g2_sx),
+                 g2_sy=u32(g2_sy), length=length)
     return BN254Context(srs=srs, n=n)
+
+
+def _srs_disk_load(path: str, device) -> BN254SRS:
+    """The SRS of a cache file (either package's) on `device`. As in the
+    JAX package, an unreadable file raises."""
+    from ..utils.convert import bn254_srs_from_numpy
+    with np.load(path) as z:
+        return bn254_srs_from_numpy(
+            *(z[k] for k in ("x", "y", "inf", "g2_1x", "g2_1y", "g2_sx",
+                             "g2_sy")), int(z["length"]), device)
 
 
 # ---------- host tables ----------
@@ -275,58 +318,130 @@ def _sigma_values(ctx: BN254Context, copies) -> torch.Tensor:
 
 # ---------- commitments ----------
 
+def use_bn254_fixed_base(device) -> bool:
+    """Whether commitments on `device` go through the window table:
+    PLONK_TPU_BN254_FB=1 or =0 decides; unset, on for a CUDA device and
+    off on the CPU, as the JAX package is on for an accelerator backend
+    and off on its CPU backend."""
+    flag = os.environ.get("PLONK_TPU_BN254_FB")
+    if flag is not None:
+        return flag == "1"
+    return torch.device(device).type == "cuda"
+
+
+def bn254_fb_window_bits() -> int:
+    """The window table's window width, PLONK_TPU_BN254_FB_WB (default 4,
+    the JAX package's). K4 and its plain version read the width from the
+    table and read a digit from at most two 16-bit words, so a width
+    outside 1..16 raises ValueError."""
+    wb = int(os.environ.get("PLONK_TPU_BN254_FB_WB", "4"))
+    if not 1 <= wb <= 16:
+        raise ValueError(f"PLONK_TPU_BN254_FB_WB={wb}: the window table "
+                         "takes widths of 1 to 16 bits")
+    return wb
+
+
+def _fb_cache_path(ctx: BN254Context, wb: int) -> str:
+    """The window table's cache file, the JAX package's: under
+    $PLONK_TPU_CACHE (default ~/.cache/plonk_tpu), keyed by BLAKE2b of
+    the SRS's uint32 Montgomery x words, then of str((length, wb))."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(ctx.srs.g1s.x.cpu().numpy().astype(np.uint32).tobytes())
+    h.update(str((ctx.srs.length, wb)).encode())
+    return os.path.join(cache_root(), f"bn254_fbtbl_{h.hexdigest()}.npz")
+
+
+def _fb_disk_load(ctx: BN254Context, wb: int) -> BigFixedBaseTable | None:
+    """The cached table on the context's device, or None when there is no
+    readable cache file (the JAX package rebuilds then too)."""
+    from ..utils.convert import big_table_from_numpy
+    z = load_npz(_fb_cache_path(ctx, wb), ("x", "y", "inf"))
+    return None if z is None else big_table_from_numpy(
+        z["x"], z["y"], z["inf"], wb, ctx.device)
+
+
 def bn254_fixed_base_table(ctx: BN254Context) -> BigFixedBaseTable:
-    """The SRS window table for fixed-base commitments (4-bit windows:
-    64 windows x 16 buckets x L points, Montgomery affine words), built
-    once per context and cached on it (not on disk). On a CUDA context its
-    packed form for K4 (`pack_commit_table`) is built with it and cached
-    beside it (`bn254_packed_table`)."""
-    tbl = getattr(ctx, "_bn254_fb_table", None)
-    if tbl is None:
-        Fq = ctx.Fq
-        g = ctx.srs.g1s
-        tbl = build_big_table(Fq, affine_to_jac(Fq, g.x, g.y, g.inf),
-                              COMMIT_WINDOW_BITS, FR_BITS)
+    """The SRS window table for fixed-base commitments at
+    bn254_fb_window_bits() (4 by default: 64 windows x 16 buckets x L
+    points, Montgomery affine words): loaded from its disk cache or built
+    and written there, once per context and width. On a CUDA context its
+    packed form for K4 (`pack_commit_table`, never cached on disk) is made
+    with it and kept beside it (`bn254_packed_table`)."""
+    wb = bn254_fb_window_bits()
+    tables = ctx.__dict__.setdefault("_bn254_fb_tables", {})
+    if wb not in tables:
+        tbl = _fb_disk_load(ctx, wb)
+        if tbl is None:
+            Fq = ctx.Fq
+            g = ctx.srs.g1s
+            tbl = build_big_table(Fq, affine_to_jac(Fq, g.x, g.y, g.inf),
+                                  wb, FR_BITS)
+            u32 = lambda t: t.cpu().numpy().astype(np.uint32)
+            save_npz(_fb_cache_path(ctx, wb), x=u32(tbl.x), y=u32(tbl.y),
+                     inf=tbl.inf.cpu().numpy().astype(bool))
         packed = (pack_commit_table(tbl) if tbl.x.device.type == "cuda"
                   else None)
-        object.__setattr__(ctx, "_bn254_fb_table", tbl)
-        object.__setattr__(ctx, "_bn254_fb_packed", packed)
-    return tbl
+        tables[wb] = (tbl, packed)
+    return tables[wb][0]
 
 
 def bn254_packed_table(ctx: BN254Context) -> torch.Tensor | None:
     """K4's packed window table of a CUDA context (None on the CPU, whose
     commitments take the plain version over the int64 table)."""
     bn254_fixed_base_table(ctx)
-    return ctx._bn254_fb_packed
+    return ctx._bn254_fb_tables[bn254_fb_window_bits()][1]
+
+
+def _commit_rows(ctx: BN254Context, coeff_list, msm) -> BigG1Affine:
+    """The k coefficient tensors (..., L_i, 16) of `coeff_list`, padded
+    to the SRS length, decoded to standard-form scalars and committed by
+    msm((prod(...) * k, L, 16) scalars) -> Jacobian batch: a BigG1Affine
+    batch of shape (..., k) (Montgomery words)."""
+    Fr, Fq = ctx.Fr, ctx.Fq
+    L = ctx.srs.length
+    rows = BPol.stack_rows([BPol.pad_to(c, L)[..., :L, :]
+                            for c in coeff_list])
+    batch = rows.shape[:-2]
+    x, y, inf = big_to_affine(Fq, msm(Fr.decode(
+        rows.reshape((-1,) + rows.shape[-2:]))))
+    return BigG1Affine(x.reshape(batch + x.shape[-1:]),
+                       y.reshape(batch + y.shape[-1:]), inf.reshape(batch))
 
 
 def bn254_table_commit(ctx: BN254Context):
-    """commit_many through the context's window table (built at the first
-    commitment): list of k coefficient tensors (..., L_i, 16) ->
-    BigG1Affine batch of shape (..., k) (Montgomery words), one K4 launch
-    over all prod(...) * k commitments on the card."""
-    Fr, Fq = ctx.Fr, ctx.Fq
-    L = ctx.srs.length
+    """commit_many through the context's window table (built or loaded at
+    the first commitment): list of k coefficient tensors (..., L_i, 16)
+    -> BigG1Affine batch of shape (..., k) (Montgomery words), one K4
+    launch over all prod(...) * k commitments on the card."""
+    return lambda coeff_list: _commit_rows(
+        ctx, coeff_list, lambda sc: big_commit_many(
+            ctx.Fq, bn254_fixed_base_table(ctx), sc,
+            bn254_packed_table(ctx)))
 
-    def commit(coeff_list) -> BigG1Affine:
-        rows = BPol.stack_rows([BPol.pad_to(c, L)[..., :L, :]
-                                for c in coeff_list])
-        batch = rows.shape[:-2]
-        out = big_commit_many(Fq, bn254_fixed_base_table(ctx),
-                              Fr.decode(rows.reshape((-1,)
-                                                     + rows.shape[-2:])),
-                              bn254_packed_table(ctx))
-        x, y, inf = big_to_affine(Fq, out)
-        return BigG1Affine(x.reshape(batch + x.shape[-1:]),
-                           y.reshape(batch + y.shape[-1:]),
-                           inf.reshape(batch))
 
-    return commit
+def _commit_many(ctx: BN254Context, coeff_list) -> BigG1Affine:
+    """commit_many without a table: bucket MSMs of all the commitments in
+    one batched pass over the SRS points, GLV-split with 8-bit windows
+    (ops/glv.py), or the plain 254-bit Pippenger walk under
+    PLONK_TPU_BN254_GLV=0; the JAX package's switch and windows. The same
+    points as the table route."""
+    Fq = ctx.Fq
+    g = ctx.srs.g1s
+    pts = affine_to_jac(Fq, g.x, g.y, g.inf)
+    if os.environ.get("PLONK_TPU_BN254_GLV", "1") != "0":
+        msm = lambda sc: big_msm_glv_many(Fq, pts, sc, MSM_WINDOW_BITS)
+    else:
+        msm = lambda sc: big_msm_pippenger_many(Fq, pts, sc, MSM_WINDOW_BITS,
+                                                FR_BITS)
+    return _commit_rows(ctx, coeff_list, msm)
 
 
 def _local_prims(ctx: BN254Context) -> BN254Prims:
+    """The single-device prims; commit_many takes the window table when
+    use_bn254_fixed_base(ctx.device) holds, else _commit_many."""
     dev = str(ctx.device)
+    commit = (bn254_table_commit(ctx) if use_bn254_fixed_base(ctx.device)
+              else lambda coeff_list: _commit_many(ctx, coeff_list))
     return BN254Prims(
         intt_n=lambda F, x: big_intt(F, x, ctx.omega),
         ntt4n=lambda F, x: big_fused_ntt(F, x, ctx.omega4),
@@ -334,7 +449,7 @@ def _local_prims(ctx: BN254Context) -> BN254Prims:
         grand_product=lambda F, fr: torch.cat(
             [F.ones(fr.shape[:-2] + (1,), fr.device),
              BPol.prefix_prod_chunked(F, fr)], dim=-2),
-        commit_many=bn254_table_commit(ctx),
+        commit_many=commit,
         perm4n=lambda tbl: tbl[torch.as_tensor(scrambled_perm(len(tbl)),
                                                device=dev)])
 
@@ -606,12 +721,13 @@ def make_prover_bn254(ctx: BN254Context, selectors, copies,
     """Prover for a fixed circuit: the circuit tables (and, with the
     default prims, the window table) are made once here; returns
     fn(a_w, b_w, c_w, challenge, rand9, public_inputs=None)
-    -> (BN254Proof, BN254Diagnostics). `prims` defaults to _local_prims,
-    which commits through the window table (K4 on the card); explicit
-    prims are used as given."""
+    -> (BN254Proof, BN254Diagnostics). `prims` defaults to _local_prims
+    (the window table, made here, when use_bn254_fixed_base says so; else
+    _commit_many); explicit prims are used as given."""
     if prims is None:
         prims = _local_prims(ctx)
-        bn254_fixed_base_table(ctx)
+        if use_bn254_fixed_base(ctx.device):
+            bn254_fixed_base_table(ctx)
     pre = precompute_bn254(ctx, selectors, copies, prims)
 
     def fn(a_w, b_w, c_w, ch, rnd, public_inputs=None):
@@ -637,9 +753,9 @@ class BN254VK(NamedTuple):
 def make_vk_bn254(ctx: BN254Context, selectors, copies,
                   prims: BN254Prims | None = None) -> BN254VK:
     """Selector and permutation commitments (standard-form affine words),
-    interpolated and committed by `prims` (default _local_prims: through
-    the window table, K4 on the card); the JAX package commits them by GLV
-    Pippenger, which gives the same points."""
+    interpolated and committed by `prims` (default _local_prims, whose
+    route use_bn254_fixed_base decides); the JAX package commits them by
+    GLV Pippenger whatever the switch, which gives the same points."""
     Fr, Fq = ctx.Fr, ctx.Fq
     prims = prims or _local_prims(ctx)
     sel = Fr.encode(_as_words(selectors, ctx.device))

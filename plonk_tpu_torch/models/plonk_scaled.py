@@ -28,8 +28,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import tempfile
-import zipfile
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +44,7 @@ from ..ops.curve import (G1, GT, _sel, g1_add, g1_generator, g1_mul, g1_neg,
 from ..ops.field import MontField
 from ..ops.fixed_base import FixedBaseTable
 from ..ops.pairing import final_exponentiation, miller_loop
+from ..utils.diskcache import cache_root, load_npz, save_npz
 from ..utils.kernels import resolve_device
 from ..utils.params import PlonkParams, scaled_plonk_params
 from .plonk import Proof
@@ -223,48 +222,30 @@ def _fb_cache_path(ctx: ScaledContext, wb: int) -> str:
     h.update(g1s.inf.cpu().numpy().astype(bool).tobytes())
     h.update(str((ctx.params.field.p, ctx.params.curve.base.p, wb,
                   "pal")).encode())
-    root = os.environ.get("PLONK_TPU_CACHE",
-                          os.path.expanduser("~/.cache/plonk_tpu"))
-    return os.path.join(root, f"fbtable_{h.hexdigest()}.npz")
+    return os.path.join(cache_root(), f"fbtable_{h.hexdigest()}.npz")
 
 
 def _fb_disk_load(ctx: ScaledContext, wb: int) -> FixedBaseTable | None:
     """The cached table on the context's device (with K2's packed copy on
     a CUDA device), or None when there is no readable cache file."""
-    path = _fb_cache_path(ctx, wb)
-    if not os.path.exists(path):
-        return None
-    try:
-        with np.load(path) as z:
-            x, y, inf = z["x"], z["y"], z["inf"]
-    except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+    z = load_npz(_fb_cache_path(ctx, wb), ("x", "y", "inf"))
+    if z is None:
         return None
     dev = ctx.device
     return with_packed(FixedBaseTable(
-        x=torch.as_tensor(x.astype(np.int64), device=dev),
-        y=torch.as_tensor(y.astype(np.int64), device=dev),
-        inf=torch.as_tensor(inf.astype(bool), device=dev), window_bits=wb))
+        x=torch.as_tensor(z["x"].astype(np.int64), device=dev),
+        y=torch.as_tensor(z["y"].astype(np.int64), device=dev),
+        inf=torch.as_tensor(z["inf"].astype(bool), device=dev),
+        window_bits=wb))
 
 
 def _fb_disk_save(ctx: ScaledContext, wb: int, tbl: FixedBaseTable) -> None:
     """Write the table's x, y (uint32) and inf (bool), the JAX package's
-    npz fields; the packed copy is never cached. Best effort: a write
-    that fails leaves no file, and the file appears whole (renamed into
-    place) or not at all."""
-    path = _fb_cache_path(ctx, wb)
-    tmp = None
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
-                                   suffix=".npz.tmp")
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, x=tbl.x.cpu().numpy().astype(np.uint32),
-                     y=tbl.y.cpu().numpy().astype(np.uint32),
-                     inf=tbl.inf.cpu().numpy().astype(bool))
-        os.replace(tmp, path)
-    except OSError:
-        if tmp is not None and os.path.exists(tmp):
-            os.remove(tmp)
+    npz fields; the packed copy is never cached."""
+    save_npz(_fb_cache_path(ctx, wb),
+             x=tbl.x.cpu().numpy().astype(np.uint32),
+             y=tbl.y.cpu().numpy().astype(np.uint32),
+             inf=tbl.inf.cpu().numpy().astype(bool))
 
 
 def table_commit(ctx: ScaledContext, table):

@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from ..utils import kernels
-from .bigcurve import (BigFixedBaseTable, BigG1J, _big_digits_batch,
-                       affine_to_jac, big_tree_reduce)
+from .bigcurve import (BigFixedBaseTable, BigG1J, affine_to_jac, big_digits,
+                       big_tree_reduce)
 from .bigfield import BigMontField
 
 _THREADS = 128          # csrc/big_commit.cu THREADS
@@ -70,8 +70,7 @@ def commit_digits(table: BigFixedBaseTable,
     if scalar_words.shape[1] < L:
         scalar_words = torch.nn.functional.pad(
             scalar_words, (0, 0, 0, L - scalar_words.shape[1]))
-    digits = _big_digits_batch(scalar_words, int(table.window_bits), W,
-                               scalar_words.shape[-1])
+    digits = big_digits(scalar_words, int(table.window_bits), W)
     digits = torch.where(table.inf[0, 1][None, None, :], 0, digits)
     return digits.to(torch.int32).contiguous()
 

@@ -8,9 +8,11 @@ stacked into one `mul_many` call, which cuts launches and leaves the
 values as they are.
 
 The fixed-base window table (`BigFixedBaseTable`, `build_big_table`) is
-what the commitments read: T[w][d] = d * 2^(w*wb) * P_i as affine words.
-The arbitrary-base Pippenger MSM and the GLV split of the JAX package are
-not ported (the port commits through the table).
+what the table commitments read: T[w][d] = d * 2^(w*wb) * P_i as affine
+words. `big_msm_pippenger(_many)` is the bucket MSM over arbitrary points
+that the commitments without a table run (directly, or on the GLV split
+of `ops/glv.py`); see its section below for how it differs from the JAX
+package's sequential scans.
 """
 from __future__ import annotations
 
@@ -216,13 +218,16 @@ def build_big_table(F: BigMontField, pts: BigG1J, window_bits: int,
         window_bits=window_bits)
 
 
-def _big_digits_batch(scalar_words: torch.Tensor, wb: int, n_windows: int,
-                      n_words: int) -> torch.Tensor:
-    """(..., L, n_words) 16-bit words -> (..., W, L) window digits."""
+def big_digits(scalar_words: torch.Tensor, wb: int,
+               n_windows: int) -> torch.Tensor:
+    """(..., L, n_words) 16-bit scalar words -> (..., W, L) window digits:
+    the JAX package's `_big_digits` on (L, n_words) and its
+    `_big_digits_batch` on (B, L, n_words)."""
+    n_words = scalar_words.shape[-1]
     if 16 % wb == 0:          # windows never straddle words: one shift
         per = 16 // wb
         sh = torch.arange(per, device=scalar_words.device) * wb
-        d = (scalar_words[..., :n_words, None] >> sh) & ((1 << wb) - 1)
+        d = (scalar_words[..., None] >> sh) & ((1 << wb) - 1)
         d = d.flatten(-2)[..., :n_windows]                  # (..., L, W)
         return d.transpose(-1, -2)
     out = []
@@ -247,22 +252,27 @@ def big_tree_reduce(F: BigMontField, terms: BigG1J, dim: int,
         shape[dim] = m - n
         pad = BigG1J.identity(F, shape, terms.X.device)
         terms = BigG1J(*(torch.cat([a, b], dim) for a, b in zip(terms, pad)))
+    flat = lambda p: BigG1J(*(c.reshape(-1, F.limbs) for c in p))
     while m > 1:
         h = m // 2
         lo = BigG1J(*(c.narrow(dim, 0, h) for c in terms))
         hi = BigG1J(*(c.narrow(dim, h, h) for c in terms))
-        per = max(1, chunk * h // max(lo.X[..., 0].numel(), 1))
-        if per >= h:
-            terms = big_jac_add(F, lo, hi)
-        else:
-            parts = [big_jac_add(F, BigG1J(*(c.narrow(dim, s, min(per, h - s))
-                                             for c in lo)),
-                                 BigG1J(*(c.narrow(dim, s, min(per, h - s))
-                                          for c in hi)))
-                     for s in range(0, h, per)]
-            terms = BigG1J(*(torch.cat(c, dim) for c in zip(*parts)))
+        terms = BigG1J(*(c.reshape(lo.X.shape) for c in _add_chunked(
+            F, flat(lo), flat(hi), chunk)))
         m = h
     return BigG1J(*(c.select(dim, 0) for c in terms))
+
+
+def _add_chunked(F: BigMontField, p: BigG1J, q: BigG1J,
+                 chunk: int) -> BigG1J:
+    """big_jac_add of two flat (N, limbs) batches, `chunk` at a time."""
+    n = p.X.shape[0]
+    if n <= chunk:
+        return big_jac_add(F, p, q)
+    parts = [big_jac_add(F, BigG1J(*(c[s:s + chunk] for c in p)),
+                         BigG1J(*(c[s:s + chunk] for c in q)))
+             for s in range(0, n, chunk)]
+    return BigG1J(*(torch.cat(c) for c in zip(*parts)))
 
 
 def big_fixed_base_mul_many(F: BigMontField, table: BigFixedBaseTable,
@@ -274,10 +284,183 @@ def big_fixed_base_mul_many(F: BigMontField, table: BigFixedBaseTable,
     n_windows, nb, L, limbs = table.x.shape
     if L != 1:
         raise ValueError("per-scalar fixed-base requires a 1-point table")
-    digits = _big_digits_batch(scalar_words, wb, n_windows,
-                               scalar_words.shape[-1])          # (W, B)
+    digits = big_digits(scalar_words, wb, n_windows)          # (W, B)
     widx = torch.arange(n_windows, device=digits.device)[:, None]
     gx = table.x[:, :, 0][widx, digits]                         # (W, B, l)
     gy = table.y[:, :, 0][widx, digits]
     ginf = table.inf[:, :, 0][widx, digits]
     return big_tree_reduce(F, affine_to_jac(F, gx, gy, ginf), dim=0)
+
+
+# ---------------- Pippenger MSM over arbitrary points ----------------
+#
+# The JAX package's big_msm_pippenger walks each window's sorted points
+# with a chunked sequential scan, reduces the 255 buckets with a
+# descending running sum and combines the windows with doublings, all as
+# lax loops. Eagerly each sequential step is a whole point operation
+# (~10^3 launches), so the port keeps the math and drops the sequence:
+#
+# - bucket sums by pairwise halving with segment flags over the sorted
+#   points of every (lane, window) row at once: ceil(log2 L) levels of
+#   one batched addition each, L - 1 additions a row in all. A
+#   Hillis-Steele segmented scan would take as many levels but log2(L)
+#   times the additions (each level adds over every slot), and it is the
+#   additions' temporaries that bound the batch a level can hold;
+# - sum_b b S_b over the bits of b: V_k, the sum of the bucket sums whose
+#   b has bit k set, for every k at once by one masked tree, then
+#   sum_k 2^k V_k by Horner's rule (wb - 1 doublings and additions), in
+#   place of 510 sequential additions; only the nonempty buckets take
+#   part (at most min(L, 2^wb) a row), which keeps small MSMs small;
+# - the windows by Horner's rule (wb doublings and one addition a
+#   window): sequential, but on the (B,) lanes alone.
+#
+# Jacobian representatives depend on the order of addition: compare
+# results in affine form (big_to_affine), as the JAX package's bench does.
+
+PIPPENGER_CHUNK = 1 << 17      # point additions per big_jac_add call
+
+
+def _segment_sums(F: BigMontField, pts: BigG1J, keys: torch.Tensor,
+                  n_keys: int, chunk: int) -> BigG1J:
+    """Sum of the points of each key of each row: pts (R, m, limbs), keys
+    (R, m) ascending along the row, in [0, n_keys) -> (R, n_keys) points,
+    the identity where a key has no point.
+
+    Pairwise halving: a node covers a run of the sorted row and holds the
+    sum of its first key's points (P, key pk) and of its last key's (S,
+    key sk), `single` when the run has one key. Merging L and R adds L.S
+    and R.P once; a key whose run lies wholly inside the merged node is
+    complete and goes to its slot of the output, every key exactly once
+    (slot n_keys takes the rest)."""
+    R, m = keys.shape
+    dev = keys.device
+    out = BigG1J.identity(F, (R * (n_keys + 1),), dev)
+    out = BigG1J(*(c.clone() for c in out))
+    base = torch.arange(R, device=dev)[:, None] * (n_keys + 1)
+
+    def emit(values: BigG1J, key, valid):
+        idx = (base + torch.where(valid, key, n_keys)).reshape(-1)
+        for dst, src in zip(out, values):
+            dst.index_put_((idx,), src.reshape(-1, F.limbs))
+
+    P = S = pts
+    pk = sk = keys
+    single = torch.ones_like(keys, dtype=torch.bool)
+    while m > 1:
+        if m % 2:       # a sentinel node ends the row: its own key, no point
+            pad = BigG1J.identity(F, (R, 1), dev)
+            P = BigG1J(*(torch.cat([a, b], 1) for a, b in zip(P, pad)))
+            S = BigG1J(*(torch.cat([a, b], 1) for a, b in zip(S, pad)))
+            fill = torch.full((R, 1), n_keys, dtype=keys.dtype, device=dev)
+            pk, sk = torch.cat([pk, fill], 1), torch.cat([sk, fill], 1)
+            single = torch.cat([single, torch.ones_like(fill, dtype=torch.bool)],
+                               1)
+            m += 1
+        h = m // 2
+        lP, lS = BigG1J(*(c[:, 0::2] for c in P)), BigG1J(*(c[:, 0::2]
+                                                            for c in S))
+        rP, rS = BigG1J(*(c[:, 1::2] for c in P)), BigG1J(*(c[:, 1::2]
+                                                            for c in S))
+        lsk, rpk = sk[:, 0::2], pk[:, 1::2]
+        ls, rs = single[:, 0::2], single[:, 1::2]
+        join = lsk == rpk
+        flat = lambda p: BigG1J(*(c.reshape(R * h, F.limbs) for c in p))
+        M = BigG1J(*(c.reshape(R, h, F.limbs)
+                     for c in _add_chunked(F, flat(lS), flat(rP), chunk)))
+        # L's last key ends here unless L is one run that continues into R
+        # (or R's whole run joins it); R's first key ends here when it does
+        # not join L and R holds another key after it
+        emit(BigG1J(*(torch.cat([_sel(join, a, b), c], 1)
+                      for a, b, c in zip(M, lS, rP))),
+             torch.cat([lsk, rpk], 1),
+             torch.cat([~ls & (~join | ~rs), ~join & ~rs], 1))
+        P = _sel_pt(ls & join, M, lP)
+        S = _sel_pt(rs & join, M, rS)
+        pk, sk = pk[:, 0::2], sk[:, 1::2]
+        single = ls & rs & join
+        m = h
+    emit(BigG1J(*(torch.cat([a, b], 1) for a, b in zip(P, S))),
+         torch.cat([pk, sk], 1),
+         torch.cat([torch.ones_like(single), ~single], 1))
+    return BigG1J(*(c.reshape(R, n_keys + 1, F.limbs)[:, :n_keys]
+                    for c in out))
+
+
+def _window_sums(F: BigMontField, pts: BigG1J, keys: torch.Tensor,
+                 nb: int, chunk: int) -> BigG1J:
+    """sum_i d_i P_i of each row: keys (R, L), the digits in [0, nb) in
+    ascending order along the row, and pts (R, L, limbs) in the same
+    order -> (R,) points. Each digit's points are summed (_segment_sums
+    over the digits' ranks: at most K = min(L, nb) distinct digits a
+    row); then, with V_k the sum of the digit sums whose digit has bit k
+    set (one masked tree over the K sums for all k at once),
+    sum_b b S_b = sum_k 2^k V_k by Horner's rule over the bits."""
+    R, L = keys.shape
+    dev = keys.device
+    K = min(L, nb)
+    new = torch.ones_like(keys, dtype=torch.bool)
+    new[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    rank = torch.cumsum(new, 1) - 1                     # (R, L) in [0, K)
+    seg_d = torch.zeros((R, K + 1), dtype=keys.dtype, device=dev)
+    seg_d.scatter_(1, torch.where(new, rank, K), keys)  # each rank's digit
+    sums = _segment_sums(F, pts, rank, K, chunk)        # (R, K)
+    nbits = (nb - 1).bit_length()
+    bit = (seg_d[:, None, :K] >> torch.arange(nbits, device=dev)[:, None]
+           ) & 1                                         # (R, nbits, K)
+    ident = BigG1J.identity(F, (R, nbits, K), dev)
+    V = big_tree_reduce(F, _sel_pt(bit == 1, BigG1J(
+        *(c[:, None] for c in sums)), ident), dim=2)    # (R, nbits)
+    acc = BigG1J(*(c[:, nbits - 1] for c in V))
+    for k in range(nbits - 2, -1, -1):
+        acc = big_jac_add(F, big_jac_double(F, acc),
+                          BigG1J(*(c[:, k] for c in V)))
+    return acc
+
+
+def big_msm_pippenger_many(F: BigMontField, pts: BigG1J,
+                           scalar_words: torch.Tensor, window_bits: int = 8,
+                           scalar_bits: int = 254,
+                           chunk: int = PIPPENGER_CHUNK) -> BigG1J:
+    """B MSMs in one batched pass: scalar_words (B, L, n_words) standard
+    form, points (L, limbs) shared by every lane or (B, L, limbs) one set
+    a lane -> (B,) Jacobian sums sum_i s_i P_i, the same group elements as
+    the JAX package's. Every (lane, window) row is sorted by digit, and
+    the rows' bucket sums and bucket reductions run together; the windows
+    meet by Horner's rule. Additions run `chunk` points at a time (each
+    holds ~40 KB of temporaries)."""
+    wb = window_bits
+    W = -(-scalar_bits // wb)
+    B, L = scalar_words.shape[:2]
+    dev = scalar_words.device
+    keys, order = torch.sort(big_digits(scalar_words, wb, W), dim=-1)
+    pts = BigG1J(*(c.reshape(-1, L, F.limbs) for c in pts))
+    lane = (torch.arange(B, device=dev) if pts.X.shape[0] > 1
+            else torch.zeros(B, dtype=torch.long, device=dev))
+    rows = BigG1J(*(c[lane[:, None, None], order].reshape(B * W, L, F.limbs)
+                    for c in pts))                      # (B * W, L)
+    wtot = _window_sums(F, rows, keys.reshape(B * W, L), 1 << wb, chunk)
+    return combine_windows(F, BigG1J(*(c.reshape(B, W, F.limbs)
+                                       for c in wtot)), wb)
+
+
+def combine_windows(F: BigMontField, wtot: BigG1J, wb: int) -> BigG1J:
+    """sum_w 2^(w wb) T_w of window totals (B, W, limbs) -> (B,), by
+    Horner's rule from the top window: (W - 1) (wb doublings + one
+    addition), sequential, each on the B lanes."""
+    W = wtot.X.shape[1]
+    acc = BigG1J(*(c[:, W - 1] for c in wtot))
+    for w in range(W - 2, -1, -1):
+        for _ in range(wb):
+            acc = big_jac_double(F, acc)
+        acc = big_jac_add(F, acc, BigG1J(*(c[:, w] for c in wtot)))
+    return acc
+
+
+def big_msm_pippenger(F: BigMontField, pts: BigG1J,
+                      scalar_words: torch.Tensor, window_bits: int = 8,
+                      scalar_bits: int = 254) -> BigG1J:
+    """sum_i s_i P_i for arbitrary points: scalar_words (L, n_words)
+    standard form, points (L, limbs) -> one Jacobian point."""
+    out = big_msm_pippenger_many(F, pts, scalar_words[None], window_bits,
+                                 scalar_bits)
+    return BigG1J(*(c[0] for c in out))

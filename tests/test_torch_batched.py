@@ -64,6 +64,7 @@ from plonk_tpu_torch.utils import convert
 from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FR
 from test_torch_bn254 import JAX_POINTS, JAX_SCALARS
 from test_torch_bn254_fs import fs_fields as bn254_fs_fields
+from torch_bn254_env import bn254_module_env  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)   # see tests/test_torch_bigfield.py
 

@@ -32,6 +32,7 @@ from plonk_tpu_torch.models import plonk_scaled as PS
 from plonk_tpu_torch.models.synthetic import (bn254_mul_circuit, from_words,
                                               words_vec)
 from plonk_tpu_torch.utils import convert
+from torch_bn254_env import bn254_module_env  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)   # see tests/test_torch_bigfield.py
 

@@ -24,6 +24,7 @@ from plonk_tpu_torch.ops import poseidon as PO
 from plonk_tpu_torch.ops.field import MontField
 from plonk_tpu_torch.ops.row_stages import row_stages, row_stages_plain
 from plonk_tpu_torch.utils import kernels
+from torch_bn254_env import bn254_env
 
 pytestmark = pytest.mark.cuda
 
@@ -576,7 +577,7 @@ def test_big_commit_kernel_matches_plain(dev, B, L):
         BK.big_commit_many(F, tbl, scalars)    # K4 reads the packed table
 
 
-def test_bn254_proof_on_cuda_matches_cpu(dev):
+def test_bn254_proof_on_cuda_matches_cpu(dev, monkeypatch, tmp_path):
     from plonk_tpu_torch.models import plonk_bn254 as PB
     from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
     sel, cp, a, b, c = bn254_mul_circuit(8)
@@ -584,6 +585,8 @@ def test_bn254_proof_on_cuda_matches_cpu(dev):
     rnd = words_vec(range(17, 26))
     proofs = []
     for d in ("cpu", dev):
+        # empty caches of the device's own: each builds its SRS and table
+        bn254_env(monkeypatch, tmp_path / str(d))
         ctx = PB.bn254_setup(8, secret=987654321, device=d)
         prover = PB.make_prover_bn254(ctx, sel, cp)
         kernels.reset_counts()
@@ -622,7 +625,8 @@ def test_big_permute_on_cuda_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("kind", ["blake2b", "poseidon"])
-def test_bn254_fs_proof_on_cuda_matches_cpu(dev, kind):
+def test_bn254_fs_proof_on_cuda_matches_cpu(dev, kind, monkeypatch,
+                                            tmp_path):
     """The n = 8 BN254 FS proof on the card equals the CPU port's, nonce
     and challenge included, with K3 4 and K4 4 launches (one a round)."""
     from plonk_tpu_torch.models import plonk_bn254 as PB
@@ -631,6 +635,8 @@ def test_bn254_fs_proof_on_cuda_matches_cpu(dev, kind):
     rnd = words_vec(range(17, 26))
     outs = []
     for d in ("cpu", dev):
+        # empty caches of the device's own: each builds its SRS and table
+        bn254_env(monkeypatch, tmp_path / str(d))
         ctx = PB.bn254_setup(8, secret=987654321, device=d)
         prover = (FS.BN254FsProver if kind == "blake2b"
                   else FSP.BN254PoseidonFsProver)(ctx, sel, cp)
@@ -1092,7 +1098,8 @@ def test_batched_launches_equal_one_proof(dev):
         assert bool(d.satisfied) == bool(diags.satisfied[i])
 
 
-def test_batched_bn254_proof_on_cuda_matches_cpu(dev):
+def test_batched_bn254_proof_on_cuda_matches_cpu(dev, monkeypatch,
+                                                 tmp_path):
     """B = 2 BN254 proofs at n = 8: the card's batch equals the CPU port's
     word for word and each single proof, with one proof's launches (K3 4,
     K4 1)."""
@@ -1106,6 +1113,8 @@ def test_batched_bn254_proof_on_cuda_matches_cpu(dev):
     rnds = np.stack([words_vec(range(17, 26)), words_vec(range(31, 40))])
     outs = []
     for d in ("cpu", dev):
+        # empty caches of the device's own: each builds its SRS and table
+        bn254_env(monkeypatch, tmp_path / str(d))
         ctx = PB.bn254_setup(8, secret=987654321, device=d)
         prover = PB.make_prover_bn254(ctx, sel, cp)
         kernels.reset_counts()
@@ -1166,3 +1175,108 @@ def test_big_commit_kernel_batched_rows_with_zero_lane(dev):
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert bool(got[2][9:18].all()) and not bool(got[2][:9].any())
+
+
+# ---- BN254 MSMs without a table: Pippenger and GLV ----
+
+def _msm_inputs(dev, L, B, seed):
+    """Seeded multiples of G (one at infinity, one repeated, one the
+    negative of another; made by the python-int oracle) and B lanes of
+    scalars below r (zeros in lane 0, lane B - 1 all zero): (field, points,
+    scalars on the CPU, the same on `dev`)."""
+    import bn254_oracle as O
+    from plonk_tpu_torch.ops import bigcurve as BC
+    from plonk_tpu_torch.ops.bigfield import BigMontField
+    F = BigMontField(BC.BN254_FQ)
+    rng = np.random.default_rng(seed)
+    ks = [int(k) for k in rng.integers(1, 1 << 20, size=L)]
+    ks[3], ks[5], ks[7] = 0, ks[4], O.R - ks[6]
+    aff = [O.g1_mul(O.G1_GEN, k) if k else None for k in ks]
+    xy = [F.array([p[i] if p else 0 for p in aff], "cpu") for i in (0, 1)]
+    pts = BC.affine_to_jac(F, *xy, torch.tensor([p is None for p in aff]))
+    sc = rng.integers(0, 1 << 16, size=(B, L, 16))
+    sc[..., 15] &= 0x0FFF
+    sc[0, ::3] = 0
+    sc[-1] = 0
+    sc = torch.as_tensor(sc)
+    return F, pts, sc, BC.BigG1J(*(c.to(dev) for c in pts)), sc.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["pippenger", "glv"])
+@pytest.mark.parametrize("L,B", [(13, 2), (100, 2)])
+def test_msm_on_cuda_matches_cpu(dev, kind, L, B):
+    """big_msm_pippenger_many and big_msm_glv_many on the card give the
+    CPU port's affine words (no kernel: PyTorch ops on the card), the
+    single forms lane 0's."""
+    from plonk_tpu_torch.ops import bigcurve as BC
+    from plonk_tpu_torch.ops import glv as GLV
+    F, pts, sc, pts_d, sc_d = _msm_inputs(dev, L, B, L)
+    many = {"pippenger": BC.big_msm_pippenger_many,
+            "glv": GLV.big_msm_glv_many}[kind]
+    one = {"pippenger": BC.big_msm_pippenger, "glv": GLV.big_msm_glv}[kind]
+    kernels.reset_counts()
+    got = BC.big_to_affine(F, many(F, pts_d, sc_d))
+    single = BC.big_to_affine(F, BC.BigG1J(
+        *(c[None] for c in one(F, pts_d, sc_d[0]))))
+    torch.cuda.synchronize()
+    assert not kernels.LAUNCHES
+    want = BC.big_to_affine(F, many(F, pts, sc))
+    for a, b, s in zip(got, want, single):
+        assert torch.equal(a.cpu(), b) and torch.equal(s.cpu(), b[:1])
+    assert bool(want[2][-1]) and not bool(want[2][0])
+
+
+def test_glv_decompose_on_cuda_matches_cpu(dev):
+    from plonk_tpu_torch.ops import glv as GLV
+    rng = np.random.default_rng(11)
+    sw = torch.as_tensor(rng.integers(0, 1 << 16, size=(64, 16)))
+    sw[:, 15] &= 0x0FFF
+    sw[0] = 0
+    for a, b in zip(GLV.glv_decompose(sw.to(dev)), GLV.glv_decompose(sw)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("wb", [3, 5, 8])
+def test_big_commit_kernel_other_window_bits(dev, wb):
+    """K4 reads the window width from the table: 3-, 5- (digits across
+    two words) and 8-bit tables against the plain version."""
+    from plonk_tpu_torch.ops import bigcommit as BK
+    from plonk_tpu_torch.ops import bigcurve as BC
+    F, pts, sc, pts_d, sc_d = _msm_inputs(dev, 40, 3, wb)
+    tbl = BC.build_big_table(F, pts_d, wb, 254)
+    got = BC.big_to_affine(F, BK.big_commit_many(
+        F, tbl, sc_d, BK.pack_commit_table(tbl)))
+    want = BC.big_to_affine(F, BK.big_commit_many_plain(F, tbl, sc_d))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fb", ["1", "0"])
+def test_bn254_commit_routes_on_cuda_match_cpu(dev, fb, monkeypatch,
+                                               tmp_path):
+    """The n = 8 proof under PLONK_TPU_BN254_FB=1 (K4) and =0 (GLV, no K4)
+    on the card equals the CPU port's; K3 4 launches either way."""
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
+    monkeypatch.setenv("PLONK_TPU_BN254_FB", fb)
+    sel, cp, a, b, c = bn254_mul_circuit(8)
+    ch = words_vec([111111, 222222, 333333, 444444, 555555])
+    rnd = words_vec(range(17, 26))
+    proofs = []
+    for d in ("cpu", dev):
+        # empty caches of the device's own: each builds its SRS and table
+        bn254_env(monkeypatch, tmp_path / str(d), table_route=False)
+        ctx = PB.bn254_setup(8, secret=987654321, device=d)
+        prover = PB.make_prover_bn254(ctx, sel, cp)
+        kernels.reset_counts()
+        proof, diags = prover(a, b, c, ch, rnd)
+        assert bool(diags.all_ok())
+        if d != "cpu":
+            assert dict(kernels.LAUNCHES) == (
+                {"big_row": 4, "big_commit": 1} if fb == "1"
+                else {"big_row": 4})
+        proofs.append(proof)
+    for name in PB.POINT_FIELDS:
+        for k in range(3):
+            assert torch.equal(getattr(proofs[0], name)[k],
+                               getattr(proofs[1], name)[k].cpu()), name

@@ -32,8 +32,8 @@ def test_port_imports_no_jax():
     assert int(count) >= 40
     assert bad.strip() == "[]"
     # the modules of every kernel, of every prims, of the sharded prover,
-    # of the toy prover, its verifier and its batch, and of the transcripts
-    # and bytes are among those imported
+    # of the toy prover, its verifier and its batch, of the transcripts
+    # and bytes, and of the GLV MSM are among those imported
     for mod in ("ops.row_stages", "ops.fused_ntt", "ops.mxu_ntt",
                 "ops.commit", "ops.bigntt", "ops.bigcommit",
                 "models.plonk_scaled", "models.plonk_bn254",
@@ -42,5 +42,5 @@ def test_port_imports_no_jax():
                 "ops.msm", "ops.matrix", "models.constraints",
                 "models.presets", "models.verifier", "parallel.batch",
                 "ops.poseidon", "models.fiat_shamir", "models.fs_poseidon",
-                "utils.serialization", "utils.convert"):
+                "utils.serialization", "utils.convert", "ops.glv"):
         assert f"plonk_tpu_torch.{mod}" in names.split(), mod
