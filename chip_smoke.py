@@ -56,7 +56,8 @@ which the JAX package configures its BN254 prover:
  12. the main path: make_prover_bn254, prove (K3 and K4 launches
      counted), diagnostics, make_vk_bn254 (the proof's verify, and a
      tampered proof's rejection, are phase 31's verify_bn254_many);
- 13. times: proofs/s over 2 reps with distinct blinding, the stage split
+ 13. times: proofs/s of one proof (phase 35 times two in turns with the
+     sharded prover), the stage split
      of a proof, device events and device time of a proof under
      torch.profiler (so the idle share), verify, each kernel against its
      plain version, peak memory.
@@ -153,8 +154,8 @@ models/fs_poseidon.py over plonk_bn254's stages) and verify_bn254_many:
      make_vk_bn254's; K3 and K4 launches counted exactly: K3 4, K4 4 a
      proof; diagnostics; the challenges equal to the host replay; the
      proof equal to make_prover_bn254's for its challenges;
-     verify_bn254_fs accepts it), then BLAKE2b FS and
-     make_prover_bn254 proofs/s in turns and the build and proof times
+     verify_bn254_fs accepts it), the BLAKE2b proof's and that
+     make_prover_bn254 proof's times as proofs/s, and the build times
      (the Poseidon prover and verify_bn254_many are phase 31's).
 
 Then batched proving, each batch one pass whose kernel launches are one
@@ -192,7 +193,7 @@ that phase 10 writes the SRS and table files and phase 34 loads them):
  32. the JAX package's bench_bn254_msm configuration: 2^14 copies of the
      generator, random scalars below r from default_rng(0), 8-bit
      windows; plain Pippenger and GLV each equal to (sum s_i) G from a
-     python-int ladder on every roll; points/s over 2 distinct rolls of
+     python-int ladder on every roll; points/s over one more roll of
      the scalars after a warm call (GLV's read by torch.profiler: device
      events, device time, so the idle share), peak memory, no kernel
      launched; the window combination (Horner's rule) timed alone with
@@ -207,6 +208,28 @@ that phase 10 writes the SRS and table files and phase 34 loads them):
      10's files (build_big_table and big_fixed_base_mul_many refused
      meanwhile), words equal, the packed table K4 reads too; load time
      against build time.
+
+Then the mesh-sharded BN254 prover (parallel/dist_bigntt.py and
+parallel/dist_bn254.py), its shards all on the card:
+ 35. the n = 8 proof on a 2-shard mesh (the JAX package's TestDistProver
+     mesh) on phase 11's context (the card's own SRS and table, built
+     under an empty cache), on the table route and under
+     PLONK_TPU_BN254_FB=0, each equal to phase 11's single-device card
+     proof and to JAX's recorded sharded proof
+     (tests/golden/dist_bn254_jax.json); K3's local transform (the row
+     pass, then the bit-reversal gather) against big_ntt at the 2^12
+     path's rows of 64 and 128, on random and edge rows; K9 against
+     all_to_all_plain at every 16-limb shape of the 2^12 proof on 8
+     shards and its precompute; K8's generic all-gather at 8 x (1, 16)
+     against the plain exchange; K4 on the first and last shard's table
+     slice against its plain version; then on phases 10-12's context:
+     make_prover_bn254 under make_dist_bn254_prims on 8 shards, launches
+     counted exactly (K3 8, K9 10, K8 1, K4 8 a proof), diagnostics, the
+     proof equal to phase 12's, and again under plain exchanges (no K8 or
+     K9) and under PLONK_TPU_BN254_FB=0 (no K4); proofs/s of the
+     single-device and the sharded prover in turns, a sharded proof's
+     peak memory, and its device events, device time and idle share
+     under torch.profiler.
 
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
@@ -266,10 +289,13 @@ try:
     from plonk_tpu_torch.ops import ntt as N
     from plonk_tpu_torch.ops import poseidon as PO
     from plonk_tpu_torch.ops import row_stages as RS
+    from plonk_tpu_torch.ops import bigfield as BF
     from plonk_tpu_torch.ops.bigfield import BigMontField
     from plonk_tpu_torch.ops.field import MontField
     from plonk_tpu_torch.parallel import batch as TB
     from plonk_tpu_torch.parallel import collectives as CL
+    from plonk_tpu_torch.parallel import dist_bigntt as DBN
+    from plonk_tpu_torch.parallel import dist_bn254 as DB254
     from plonk_tpu_torch.parallel import dist_ntt as DN
     from plonk_tpu_torch.parallel import dist_prover as DP
     from plonk_tpu_torch.parallel import dist_scan as DS
@@ -522,7 +548,8 @@ STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
           "_stage_openings")
 PROFILE_REPS = 3
 BN_PROFILE_REPS = 1     # phase 13's staged and profiled 2^12 BN254 proofs
-BN_PROOF_REPS = 2       # phase 13's timed 2^12 BN254 proofs
+BN_PROOF_REPS = 1       # phase 13's timed 2^12 BN254 proofs (phase 35
+                        # times 2 in turns with the sharded prover)
 
 
 def staged_proofs(mod, prove, prims, call, reps: int):
@@ -834,9 +861,9 @@ def k3_times(Fr, inputs: dict) -> dict:
 
 def bn254_phases(dev, card: str, profile: bool):
     """The BN254 phases 9-13; returns (kernel entries for the kernels
-    line, timings, what phases 26-28 reuse: the n = 8 and 2^12 contexts
-    on the card, the 2^12 circuit, make_prover_bn254's prover, its proof
-    for BN_CH, the verifying key and the single verify's seconds)."""
+    line, timings, what phases 26-35 reuse: the n = 8 context on the card
+    and its proof, the 2^12 context, circuit, make_prover_bn254's prover,
+    its proof for BN_CH and the verifying key)."""
     timings, errs, kms, bounds = {}, {}, {}, {}
     Fr = BigMontField(BN254_FR)
     Fq = BigMontField(BC.BN254_FQ)
@@ -994,8 +1021,9 @@ def bn254_phases(dev, card: str, profile: bool):
     print(f"K4 terms with a nonzero digit: {terms}; distinct table entries "
           f"they select: {entries}")
     print_kernel_times(kms)
-    reuse = dict(ctx8=ctx8, ctx=ctx, circuit=(sel, cp, a, b, c),
-                 prover=prover, proof=proof, vk=vk)
+    reuse = dict(ctx8=ctx8, proof8=p_gpu, ctx=ctx,
+                 circuit=(sel, cp, a, b, c), prover=prover, proof=proof,
+                 vk=vk)
     return (kernel_entries(BN254_KERNELS, kms, launches, errs, bounds),
             timings, reuse)
 
@@ -2050,7 +2078,6 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
 BN_RND2 = list(range(31, 40))   # prove_many's second lane
 BN_FS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "tests", "golden", "bn254_fs_jax.json")
-BN_FS_REPS = 1           # BLAKE2b FS and make_prover_bn254 proofs, in turns
 PERM_BATCH = 64          # states of phase 26's batched permutation
 DIGEST_LEAVES = 1 << 12  # leaves of phase 26's tree digest
 
@@ -2164,9 +2191,8 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
           f"recorded proofs word for word, nonces and challenges included")
 
     phase("28 the BLAKE2b BN254 Fiat–Shamir prover at 2^12 gates")
-    prover = bn["prover"]
     a, b, c = bn["circuit"][2:]
-    fs, ((out, _),), _, _ = bn254_fs_checks(
+    fs, ((out, _),), _, single_s = bn254_fs_checks(
         "blake2b", FS.BN254FsProver,
         lambda *args: FS._bn254_derive_from_proof(FS.BN254_LABEL, *args),
         bn, times, [(a, b, c, rnd)])
@@ -2175,19 +2201,12 @@ def bn254_fs_phases(dev, card: str, bn: dict) -> None:
     print(f"verify_bn254_fs {ok} ({times['blake2b_verify_s']:.3f} s)")
     check(ok, "verify_bn254_fs accepts the BLAKE2b proof")
     print(f"card: {card}")
-    total = collections.Counter()
-    for rep in range(BN_FS_REPS):
-        r = words_vec([v + 200 + 9 * rep for v in BN_RND])
-        for name, prove in (
-                ("make_prover_bn254",
-                 lambda: prover(a, b, c, words_vec(BN_CH), r)),
-                ("blake2b", lambda: fs.prove(a, b, c, r))):
-            (_, d), sec = wall(prove)
-            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
-            total[name] += sec
-    for name, sec in total.items():
-        print(f"proofs_per_s {name} {BN_FS_REPS / sec:.6f} ({BN_FS_REPS} "
-              f"synchronised 2^12 proofs, in turns)")
+    # the first BLAKE2b proof and make_prover_bn254's proof for its
+    # challenges, one after the other
+    for name, sec in (("blake2b", times["blake2b_first_proof_s"]),
+                      ("make_prover_bn254", single_s)):
+        print(f"proofs_per_s {name} {1 / sec:.6f} (one synchronised 2^12 "
+              "proof, back to back)")
     for key, v in times.items():
         print(f"{key} {v:.6f}")
     return out
@@ -2240,7 +2259,7 @@ BATCH = 16               # phase 29's lanes
 BATCH_BAD = 5            # the lane tampered in phase 29's verify
 BATCH_REPS = 3           # phase 29's batches and single proofs in turns
 FS_BATCH = 8             # phase 30's lanes (bench.py's bench_fs_poseidon)
-FS_BATCH_REPS = 2        # phase 30's batches and single proofs in turns
+FS_BATCH_REPS = 1        # phase 30's batches and single proofs in turns
 BN_BATCH = 4             # phase 31's lanes
 
 
@@ -2563,7 +2582,7 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
 
 
 MSM_N = 1 << 14          # phase 32's points (bench.py's bench_bn254_msm)
-MSM_TIMED = 2            # phase 32's timed calls a kind, after a warm one
+MSM_TIMED = 1            # phase 32's timed calls a kind, after a warm one
 MSM_KINDS = {"pippenger": lambda F, pts, w: BC.big_msm_pippenger(F, pts, w),
              "glv": lambda F, pts, w: GLV.big_msm_glv(F, pts, w)}
 MSM_PROFILED = ("glv",)  # kinds whose warm call torch.profiler reads (its
@@ -2682,8 +2701,9 @@ def msm_phase(dev, card: str) -> None:
         wtot = BC.BigG1J(*(c.expand(1, W, Fq.limbs)
                            for c in BC.bn254_generator(Fq, (1, 1), dev)))
         _, horner_s = wall(lambda: BC.combine_windows(Fq, wtot, wb))
-        print(f"{name}: {call_s:.3f} s a call over {MSM_TIMED} distinct "
-              f"rolls, {rates[name]:.1f} points/s; warm call {warm_s:.3f} s"
+        print(f"{name}: {call_s:.3f} s a call ({MSM_TIMED} timed, on other "
+              f"rolls than the warm call's), {rates[name]:.1f} points/s; "
+              f"warm call {warm_s:.3f} s"
               f"; peak memory {peak:.3f} GiB; K1-K9 launches {launches}; "
               f"the window combination ({W - 1} x ({wb} doublings + 1 "
               f"addition): {(W - 1) * (wb * dbl_n + add_n)} operator calls "
@@ -2692,8 +2712,8 @@ def msm_phase(dev, card: str) -> None:
         if name in MSM_PROFILED:
             print(f"{name}'s warm call under torch.profiler: {n_dev:.0f} "
                   f"device events and {dev_us / 1e3:.3f} ms of device time,"
-                  f" against the mean timed call (unprofiled, the same "
-                  f"shapes, other rolls of the scalars: two runs), the "
+                  f" against the timed call (unprofiled, the same "
+                  f"shapes, another roll of the scalars: two runs), the "
                   f"device idle {100 * (1 - dev_us / 1e6 / call_s):.1f} % "
                   f"and {call_s * 1e6 / max(n_dev, 1):.3f} us of host a "
                   "device event")
@@ -2801,6 +2821,344 @@ def cache_phase(dev, card: str, bn: dict, timings: dict) -> None:
           f"{tbl_s:.3f} s (built, packed and written in "
           f"{timings['bn_table_build_s']:.3f} s); words equal")
     print(f"card: {card}")
+
+
+BN_DIST_D = 8            # phase 35's shards at 2^12 (JAX's 8-device mesh)
+BN_DIST_SMALL_D = 2      # phase 35's shards at n = 8 (JAX's TestDistProver)
+BN_DIST_REPS = 2         # phase 35's single and sharded proofs, in turns
+BN_DIST_PATH = f"sharded BN254 at 2^12 on {BN_DIST_D} shards"
+BN_DIST_KERNELS = {**BN254_KERNELS, **DIST_KERNELS}
+DIST_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "dist_bn254_jax.json")
+# launches of one 2^12 proof under make_dist_bn254_prims on BN_DIST_D
+# shards (precompute done in make_prover_bn254): two sharded
+# interpolations (the witness stack, the accumulator), one forward and one
+# inverse coset transform, each K3 twice (its column and its row
+# transforms, all shards in one launch) and K9 three, three, two and two
+# times; K8 once (the grand product's shard totals); K4 once a shard
+BN_DIST_LAUNCHES = {
+    "kernels": {"big_row": 8, "all_to_all": 10, "all_gather": 1,
+                "big_commit": BN_DIST_D},
+    "plain exchanges": {"big_row": 8, "big_commit": BN_DIST_D},
+    "no table": {"big_row": 8, "all_to_all": 10, "all_gather": 1}}
+# mode -> (exchange, PLONK_TPU_BN254_FB)
+BN_DIST_MODES = {"kernels": (None, "1"), "plain exchanges": ("plain", "1"),
+                 "no table": (None, "0")}
+
+
+def bn_dist_cases(n: int, D: int) -> list:
+    """(case name, shard shape, split axis, concat axis, whether a proof
+    makes it) of every 16-limb all-to-all of a sharded BN254 proof of n
+    gates on D shards and of its precompute: the transposes of the n-point
+    interpolations (batches 9 in precompute, 4 and none; an
+    interpolation's third all-to-all has its first's shape) and of the
+    4n-point coset transforms (batches 10 in precompute, 6 and none), both
+    ways."""
+    cases = []
+    for size, batches in ((n, (9, 4, None)), (4 * n, (10, 6, None))):
+        n1, n2 = DN._split(size, D)
+        for b in batches:
+            lead = () if b is None else (b,)
+            k = len(lead)
+            for shape, split, concat in (
+                    (lead + (n1 // D, n2, 16), k + 1, k),
+                    (lead + (n1, n2 // D, 16), k, k + 1)):
+                cases.append((f"{shape} split {split} concat {concat}",
+                              shape, split, concat, b not in (9, 10)))
+    return cases
+
+
+def big_exchange_bound(name: str, D: int, shard_elems: int):
+    """K8's and K9's least time on BN254 values: 32 bytes an element read
+    once and written once (K9: D shards each way; K8 reads D shards and
+    writes D*D); no arithmetic."""
+    out = D * shard_elems * (D if name == "all_gather" else 1)
+    return bound_ms((D * shard_elems + out) * BIG_BYTES, 0)
+
+
+def recorded_proof_equal(proof, rec: dict) -> bool:
+    """A proof equal to a recorded one (standard-form hex a field, a point
+    [x, y] or None at infinity)."""
+    point = lambda p: (None if bool(p.inf) else
+                       [from_words(p.x.cpu()), from_words(p.y.cpu())])
+    return (all(from_words(getattr(proof, f).cpu()) == int(rec[f], 16)
+                for f in PB.SCALAR_FIELDS)
+            and all(point(getattr(proof, f)) == (
+                None if rec[f] is None else [int(v, 16) for v in rec[f]])
+                for f in PB.POINT_FIELDS))
+
+
+def bn_dist_small(dev, bn: dict) -> None:
+    """Phase 35's n = 8 proof on a BN_DIST_SMALL_D-shard card mesh, on
+    phase 11's n = 8 context (its SRS and window table built by the card
+    under an empty cache of its own) and against phase 11's single-device
+    card proof: on the table route and under PLONK_TPU_BN254_FB=0, each
+    equal to that proof and to JAX's recorded sharded proof."""
+    with open(DIST_GOLDEN) as f:
+        rec = json.load(f)["proof_n8_d2"]
+    ctx = bn["ctx8"]
+    sel, cp, a, b, c = bn254_mul_circuit(N_BN_SMALL)
+    ch, rnd = words_vec(BN_CH), words_vec(BN_RND)
+    mesh = MS.make_1d_mesh("sp", BN_DIST_SMALL_D, device=dev)
+    for fb in ("1", "0"):
+        with switches(PLONK_TPU_BN254_FB=fb):
+            kernels.reset_counts()
+            (proof, diags), sec = wall(lambda: PB.prove_bn254(
+                ctx, sel, cp, a, b, c, ch, rnd,
+                prims=DB254.make_dist_bn254_prims(ctx, mesh)))
+        launches = dict(kernels.LAUNCHES)
+        check(bool(diags.all_ok()), f"n=8 sharded FB={fb} diagnostics")
+        check(proofs_equal(proof, bn["proof8"]),
+              f"n=8 sharded FB={fb} proof == the single-device proof")
+        check(recorded_proof_equal(proof, rec),
+              f"n=8 sharded FB={fb} proof == JAX's sharded proof")
+        check(launches.get("big_commit", 0) == (
+            BN_DIST_SMALL_D if fb == "1" else 0),
+            f"n=8 sharded FB={fb}: K4 once a shard, or not at all")
+        print(f"n=8 on {BN_DIST_SMALL_D} shards, PLONK_TPU_BN254_FB={fb}: "
+              f"proof with precompute {sec:.3f} s, launches {launches}; "
+              "equal to the card's single-device proof and to JAX's "
+              "recorded sharded proof")
+
+
+def bn_dist_k3(dev, ctx, errs: dict, bounds: dict) -> dict:
+    """K3's local transform in the sharded 2^12 proof (dist_bigntt._row_ntt:
+    one row pass over every shard's rows, then the bit-reversal gather)
+    against big_ntt, word-equal, one launch a call, at the proof's rows of
+    64 and 128 with their roots, on random and edge rows. Returns the
+    kernel_times entries."""
+    Fr = ctx.Fr
+    n1, _ = DN._split(N_BN, BN_DIST_D)
+    m1, _ = DN._split(4 * N_BN, BN_DIST_D)
+    inv = lambda w: pow(w, -1, Fr.p)
+    cases = {   # name -> (rows of the launch, row length, root)
+        f"witness interpolation ({4 * N_BN // n1}, {n1})":
+            (4 * N_BN // n1, n1, pow(inv(ctx.omega), N_BN // n1, Fr.p)),
+        f"coset fwd ({6 * 4 * N_BN // m1}, {m1})":
+            (6 * 4 * N_BN // m1, m1, pow(ctx.omega4, 4 * N_BN // m1, Fr.p)),
+        f"coset inv ({4 * N_BN // m1}, {m1})":
+            (4 * N_BN // m1, m1, pow(inv(ctx.omega4), 4 * N_BN // m1,
+                                     Fr.p))}
+    rng = np.random.default_rng(35)
+    kms = {}
+    for name, (R, C, root) in cases.items():
+        for kind in ("random", "edge rows"):
+            if kind == "random":
+                vals = rng.integers(0, 1 << 16, size=(R, C, 16))
+                vals[..., 15] &= 0x0FFF                  # < 2^252 < r
+            else:
+                vals = big_edge_rows(Fr.p, R, C, True, rng)
+            y = torch.as_tensor(vals, device=dev)
+            if kind == "random":
+                timed = y
+            before = kernels.LAUNCHES["big_row"]
+            got = DBN._row_ntt(Fr, y, root)
+            want = BF.big_ntt(Fr, y, root)
+            torch.cuda.synchronize()
+            check(kernels.LAUNCHES["big_row"] == before + 1,
+                  f"K3 local transform {name}: one launch a call")
+            err = int((got - want).abs().max())
+            print(f"K3 local transform {name}, {kind}: max_abs_err {err}")
+            check(err == 0, f"K3 local transform == big_ntt, {name} {kind}")
+            errs["big_row"] = max(errs.get("big_row", 0), err)
+        bnd = big_row_bound(R, C, False)
+        bounds.setdefault("big_row", bnd)
+        kms[f"big_row {name}"] = kernel_times(
+            lambda a=(timed, root): BN.big_row_pass(Fr, *a, True),
+            lambda a=(timed, root): BF.big_ntt(Fr, *a))
+        whole = cuda_ms(lambda a=(timed, root): DBN._row_ntt(Fr, *a),
+                        reps=40, queue_ahead=True)
+        print(f"K3 {name}: bound {bnd[0]:.6f} ms ({bnd[1]}); the local "
+              f"transform with its gather {whole:.6f} ms (CUDA events, "
+              "queued ahead)")
+    return kms
+
+
+def bn_dist_exchanges(dev, errs: dict, bounds: dict):
+    """K9 against all_to_all_plain at every bn_dist_cases shape of the 2^12
+    proof on BN_DIST_D shards, and K8's generic all-gather against the
+    plain exchange at BN_DIST_D x (1, 16), word-equal, one launch a call;
+    K9 timed at the proof's forward transposes (split after concat).
+    Returns (kernel_times entries, the plain all-to-all's queued ms of the
+    first timed case, the shapes checked)."""
+    g = torch.Generator(device="cpu").manual_seed(35)
+    kms, library, tested = {}, None, set()
+    for name, shape, split, concat, per_proof in bn_dist_cases(N_BN,
+                                                               BN_DIST_D):
+        xs = [torch.randint(0, 1 << 16, shape, generator=g).to(dev)
+              for _ in range(BN_DIST_D)]
+        before = kernels.LAUNCHES["all_to_all"]
+        got = CL.all_to_all(xs, split, concat, "cuda")
+        want = CL.all_to_all_plain(xs, split, concat)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["all_to_all"] == before + 1,
+              f"all_to_all {name}: one launch a call")
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want,
+                                                           strict=True))
+        print(f"all_to_all {name} on {BN_DIST_D} shards: max_abs_err {err}")
+        check(err == 0, f"K9 word-equal at {name}")
+        errs["all_to_all"] = max(errs.get("all_to_all", 0), err)
+        tested.add(("all_to_all", shape))
+        if not per_proof or split < concat:     # checked, not timed
+            continue
+        whole = lambda: CL.all_to_all(xs, split, concat, "cuda")
+        plain = lambda: CL.all_to_all(xs, split, concat, "plain")
+        kms[f"all_to_all {name}"] = kernel_times(whole, plain)
+        lib = cuda_ms(plain, reps=20, queue_ahead=True)
+        library = lib if library is None else library
+        elems = int(np.prod(shape[:-1]))
+        bnd = big_exchange_bound("all_to_all", BN_DIST_D, elems)
+        bounds.setdefault("all_to_all", bnd)
+        print(f"all_to_all {name}: plain whole call {lib:.6f} ms (CUDA "
+              f"events, queued ahead); bound {bnd[0]:.6f} ms (bytes); int64 "
+              f"floor {int64_floor_ms(2 * BN_DIST_D * elems * 16):.6f} ms")
+    xs = [torch.randint(0, 1 << 16, (1, 16), generator=g).to(dev)
+          for _ in range(BN_DIST_D)]
+    before = kernels.LAUNCHES["all_gather"]
+    got = CL.all_gather(xs, "cuda")
+    want = CL.all_gather(xs, "plain")
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["all_gather"] == before + 1,
+          "all_gather (1, 16): one launch a call")
+    err = max(int((a - b).abs().max()) for a, b in zip(got, want,
+                                                       strict=True))
+    print(f"all_gather of {BN_DIST_D} x (1, 16) shard totals: max_abs_err "
+          f"{err}")
+    check(err == 0, "K8's generic all-gather word-equal at (1, 16)")
+    errs["all_gather"] = max(errs.get("all_gather", 0), err)
+    tested.add(("all_gather", (1, 16)))
+    bounds["all_gather"] = big_exchange_bound("all_gather", BN_DIST_D, 1)
+    kms["all_gather (1, 16) shard totals"] = kernel_times(
+        lambda: CL.all_gather(xs, "cuda"), lambda: CL.all_gather(xs, "plain"))
+    print(f"all_gather (1, 16): bound {bounds['all_gather'][0]:.9f} ms "
+          "(bytes)")
+    return kms, library, tested
+
+
+def bn_dist_k4(dev, ctx, mesh, errs: dict, bounds: dict) -> dict:
+    """K4 on the first and the last shard's slice of the window table (the
+    last one's padding entries at infinity) against its plain version,
+    affine-equal, at B = 9 random scalars below r, padded lanes included.
+    Returns the kernel_times entry of the first slice (the plain version
+    timed once on the host clock: it takes seconds)."""
+    Fq = ctx.Fq
+    shards = DB254._table_shards(ctx, mesh)
+    rng = np.random.default_rng(36)
+    kms = {}
+    for d in (0, len(shards) - 1):
+        tbl, pk = shards[d]
+        Ls = tbl.x.shape[2]
+        sc = rng.integers(0, 1 << 16, size=(9, Ls, 16))
+        sc[..., 15] &= 0x0FFF
+        scalars = torch.as_tensor(sc, device=dev)
+        kernels.reset_counts()
+        got = BC.big_to_affine(Fq, BK.big_commit_many(Fq, tbl, scalars, pk))
+        check(kernels.LAUNCHES == {"big_commit": 1}, "K4: one launch")
+        plain, plain_s = wall(lambda: BK.big_commit_many_plain(Fq, tbl,
+                                                               scalars))
+        err = affine_err(got, BC.big_to_affine(Fq, plain))
+        pad = int(tbl.inf[0, 1].sum())
+        print(f"K4 on shard {d}'s table slice (B = 9, {Ls} points, {pad} "
+              f"of them padding at infinity): max_abs_err {err}")
+        check(err == 0, f"K4 affine-equal on shard {d}'s slice")
+        errs["big_commit"] = max(errs.get("big_commit", 0), err)
+        if d == 0:
+            bounds["big_commit"], terms, _ = big_commit_bound(tbl, scalars)
+            kms[f"big_commit shard slice B=9 L={Ls}"] = (
+                cuda_ms(lambda: BK.big_commit_many(Fq, tbl, scalars, pk),
+                        reps=50, queue_ahead=True), plain_s * 1e3,
+                device_ms(lambda: BK.big_commit_many(Fq, tbl, scalars, pk)))
+            print(f"K4 shard slice: bound {bounds['big_commit'][0]:.6f} ms "
+                  f"({bounds['big_commit'][1]}), {terms} terms with a "
+                  "nonzero digit")
+    return kms
+
+
+def dist_bn254_phase(dev, card: str, bn: dict) -> list:
+    """Phase 35: the mesh-sharded BN254 prover (parallel/dist_bn254.py) on
+    the card; returns the kernel entries of its 2^12 path."""
+    phase("35 the sharded BN254 prover: n = 8 on 2 shards, K3, K4, K8 and "
+          f"K9 at its shapes, 2^12 on {BN_DIST_D} shards")
+    bn_dist_small(dev, bn)
+    ctx = bn["ctx"]
+    mesh = MS.make_1d_mesh("sp", BN_DIST_D, device=dev)
+    errs, bounds = {}, {}
+    kms = bn_dist_k3(dev, ctx, errs, bounds)
+    ex_kms, library, tested = bn_dist_exchanges(dev, errs, bounds)
+    kms.update(bn_dist_k4(dev, ctx, mesh, errs, bounds))
+    kms.update(ex_kms)
+
+    sel, cp, a, b, c = bn["circuit"]
+    ch, rnd = words_vec(BN_CH), words_vec(BN_RND)
+    seen = set()
+    launch = CL._launch
+
+    def recorded(name, srcs, *rest):
+        seen.add((name, tuple(srcs[0].shape)))
+        return launch(name, srcs, *rest)
+
+    provers, launches = {}, {}
+    for mode, (exchange, fb) in BN_DIST_MODES.items():
+        with switches(PLONK_TPU_BN254_FB=fb):
+            prims = DB254.make_dist_bn254_prims(ctx, mesh, exchange=exchange)
+            CL._launch = recorded
+            try:
+                prover, make_s = wall(lambda: PB.make_prover_bn254(
+                    ctx, sel, cp, prims=prims))
+                kernels.reset_counts()
+                (proof, diags), proof_s = wall(lambda: prover(a, b, c, ch,
+                                                              rnd))
+            finally:
+                CL._launch = launch
+        counts = dict(kernels.LAUNCHES)
+        print(f"2^12 on {BN_DIST_D} shards, {mode}: make_prover_bn254 "
+              f"{make_s:.3f} s, first proof {proof_s:.3f} s, launches "
+              f"{counts}; diagnostics {diags}")
+        check(counts == BN_DIST_LAUNCHES[mode],
+              f"sharded 2^12 proof, {mode}: launches {counts}")
+        check(bool(diags.all_ok()), f"sharded 2^12 diagnostics, {mode}")
+        check(proofs_equal(proof, bn["proof"]),
+              f"sharded 2^12 proof ({mode}) == phase 12's, word for word")
+        provers[mode] = prover
+        if mode == "kernels":
+            launches = counts
+    check(seen <= tested, f"every exchange of the sharded proof checked: "
+          f"{sorted(seen - tested)}")
+    print(f"the three sharded proofs equal phase 12's; {len(seen)} exchange "
+          "shapes, each checked above")
+
+    rnd_rep = lambda rep: words_vec([v + 300 + 9 * rep for v in BN_RND])
+    turns = {"single-device": bn["prover"], "sharded": provers["kernels"]}
+    total = collections.Counter()
+    for rep in range(BN_DIST_REPS):
+        for name, prover in turns.items():
+            if name == "sharded":       # its peak: the last one's
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            (_, d), sec = wall(lambda: prover(a, b, c, ch, rnd_rep(rep)))
+            if name == "sharded":
+                peak = torch.cuda.max_memory_allocated()
+            check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
+            total[name] += sec
+    proof_s = total["sharded"] / BN_DIST_REPS
+    n_dev, dev_us, prof_s, top = profiled_proofs(
+        lambda rep: provers["kernels"](a, b, c, ch, rnd_rep(20 + rep)), 1)
+    print(f"card: {card}")
+    for name in turns:
+        print(f"bn_dist proofs_per_s {name} "
+              f"{BN_DIST_REPS / total[name]:.6f} ({BN_DIST_REPS} "
+              "synchronised proofs, in turns)")
+    print(f"sharded proof peak memory {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - base) / 2 ** 30:.3f} GiB above the {base / 2 ** 30:.3f}"
+          " GiB allocated before it)")
+    print_profile(n_dev, dev_us, prof_s, top, proof_s, 1)
+    print_kernel_times(kms)
+    entries = kernel_entries(BN_DIST_KERNELS, kms, launches, errs, bounds,
+                             {"all_to_all": library})
+    for e in entries:
+        e["path"] = BN_DIST_PATH
+    return entries
 
 
 # K1's and K2's kernels in the ptxas report (a substring of the mangled
@@ -3234,10 +3592,11 @@ def main() -> None:
     msm_phase(dev, card)
     commit_routes_phase(dev, card, bn)
     cache_phase(dev, card, bn, bn_timings)
+    bn_dist_entries = dist_bn254_phase(dev, card, bn)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries
-                      + dist_entries}))
+                      + dist_entries + bn_dist_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,8 +36,8 @@ diagnostics. A per-lane scalar (B, 16) meets a (B, L, 16) polynomial as
 folds into the rows of K3 and of the commitments, so a batch launches K3
 and K4 as often as one proof does. The device of the context's SRS is
 where a proof runs. The Fiat-Shamir provers over this module's stages
-are in models/fiat_shamir.py and models/fs_poseidon.py.
-Left for later (ROADMAP): the sharded prover.
+are in models/fiat_shamir.py and models/fs_poseidon.py; the mesh-sharded
+prims are parallel/dist_bn254.py's make_dist_bn254_prims.
 """
 from __future__ import annotations
 

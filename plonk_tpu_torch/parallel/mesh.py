@@ -4,7 +4,9 @@ Port of `plonk_tpu/parallel/mesh.py`. The model is that of JAX's
 `shard_map`, run from one host thread:
 - a `Mesh` is one named axis over a list of shard devices;
 - a sharded value is a list of D tensors, one per shard, split along the
-  last axis (`shard_vector`, joined again by `unshard_vector`);
+  last axis (`shard_vector`, joined again by `unshard_vector`), or for
+  16-limb BN254 values (..., n, 16) along the coefficient axis -2
+  (`shard_rows`, `unshard_rows`);
 - a body runs once per shard, in shard order;
 - a collective (`parallel/collectives.py`) is one call that takes all D
   shards.
@@ -87,3 +89,20 @@ def unshard_vector(shards: list[torch.Tensor]) -> torch.Tensor:
     """The inverse of shard_vector: the shards joined along the last
     axis."""
     return torch.cat(shards, dim=-1)
+
+
+def shard_rows(mesh: Mesh, x: torch.Tensor) -> list[torch.Tensor]:
+    """Split `x` along axis -2 (the coefficient axis of (..., n, 16)
+    BN254 words) into mesh.size equal contiguous shards, shard d on
+    mesh.devices[d]."""
+    D = mesh.size
+    if x.dim() < 2 or x.shape[-2] % D:
+        raise ValueError(f"axis -2 of {tuple(x.shape)} does not split into "
+                         f"{D} shards")
+    return [s.to(dev).contiguous()
+            for s, dev in zip(torch.chunk(x, D, dim=-2), mesh.devices)]
+
+
+def unshard_rows(shards: list[torch.Tensor]) -> torch.Tensor:
+    """The inverse of shard_rows: the shards joined along axis -2."""
+    return torch.cat(shards, dim=-2)

@@ -661,7 +661,8 @@ def test_bn254_fs_proof_on_cuda_matches_cpu(dev, kind, monkeypatch,
 
 @pytest.mark.parametrize("D,shape", [(8, (1,)), (8, (3, 5)), (1, (7,)),
                                      (4, (64, 512)), (16, (2, 3)),
-                                     (8, (64, 512)), (3, (5, 3))])
+                                     (8, (64, 512)), (3, (5, 3)),
+                                     (8, (1, 16)), (2, (1, 16))])
 def test_all_gather_kernel_matches_plain(dev, D, shape):
     from plonk_tpu_torch.parallel import collectives as CL
     g = torch.Generator(device="cpu").manual_seed(D + len(shape))
@@ -1280,3 +1281,113 @@ def test_bn254_commit_routes_on_cuda_match_cpu(dev, fb, monkeypatch,
         for k in range(3):
             assert torch.equal(getattr(proofs[0], name)[k],
                                getattr(proofs[1], name)[k].cpu()), name
+
+
+# ---- the mesh-sharded BN254 prover (parallel/dist_bigntt, dist_bn254) ----
+
+def _bn_dist_a2a_cases():
+    """(D, shard shape, split, concat) of every 16-limb all-to-all of the
+    sharded n = 8 proof on 2 shards and of the 2^12 proof on 8, their
+    precompute included (interpolation batches 9, 4, none; coset batches
+    10, 6, none), and at a batch of 12."""
+    from plonk_tpu_torch.parallel.dist_ntt import _split
+    cases = []
+    for n, D in ((8, 2), (1 << 12, 8)):
+        for size, batches in ((n, (9, 4, 12, None)),
+                              (4 * n, (10, 6, 12, None))):
+            n1, n2 = _split(size, D)
+            for b in batches:
+                lead = () if b is None else (b,)
+                k = len(lead)
+                cases += [(D, lead + (n1 // D, n2, 16), k + 1, k),
+                          (D, lead + (n1, n2 // D, 16), k, k + 1)]
+    return cases
+
+
+@pytest.mark.parametrize("D,shape,split_axis,concat_axis",
+                         _bn_dist_a2a_cases())
+def test_all_to_all_kernel_at_the_limb_shapes(dev, D, shape, split_axis,
+                                              concat_axis):
+    """K9 with the trailing 16-word axis: one launch a call, the plain
+    all_to_all's words."""
+    from plonk_tpu_torch.parallel import collectives as CL
+    g = torch.Generator(device="cpu").manual_seed(sum(shape) + D)
+    shards = [torch.randint(0, 1 << 16, shape, generator=g).to(dev)
+              for _ in range(D)]
+    before = kernels.LAUNCHES["all_to_all"]
+    got = CL.all_to_all(shards, split_axis, concat_axis, exchange="cuda")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["all_to_all"] == before + 1
+    want = CL.all_to_all_plain(shards, split_axis, concat_axis)
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("R,C", [(256, 64), (64, 64), (768, 128),
+                                 (128, 128), (4, 2), (6, 8), (3, 1024)])
+def test_sharded_local_transform_matches_big_ntt(dev, R, C):
+    """The sharded transforms' local transform on the card (one K3 row
+    pass, then the bit-reversal gather) gives big_ntt's words, on random
+    and edge rows, forward and inverse roots."""
+    from plonk_tpu_torch.models.synthetic import big_edge_rows
+    from plonk_tpu_torch.ops.bigfield import BigMontField, big_ntt
+    from plonk_tpu_torch.parallel import dist_bigntt as DBN
+    from plonk_tpu_torch.utils.params import BN254_FR
+    F = BigMontField(BN254_FR)
+    w = BN254_FR.root_of_unity(C)
+    rng = np.random.default_rng(R + C)
+    for y, root in ((_big_words(F, (R, C), R + C), w),
+                    (torch.as_tensor(big_edge_rows(F.p, R, C, True, rng)),
+                     pow(w, -1, F.p))):
+        before = kernels.LAUNCHES["big_row"]
+        got = DBN._row_ntt(F, y.to(dev), root)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["big_row"] == before + 1
+        assert torch.equal(got.cpu(), big_ntt(F, y, root))
+
+
+def test_bn254_sharded_proof_on_cuda_matches_cpu(dev, monkeypatch,
+                                                 tmp_path):
+    """The n = 8 proof under make_dist_bn254_prims on 2 shards of the card
+    equals the CPU mesh's, each device building its SRS and table under
+    empty caches of its own; on the card, the table route launches K3 8,
+    K9 10, K8 1 and K4 2 times, PLONK_TPU_BN254_FB=0 no K4, plain
+    exchanges no K8 or K9."""
+    from plonk_tpu_torch.models import plonk_bn254 as PB
+    from plonk_tpu_torch.models.synthetic import bn254_mul_circuit, words_vec
+    from plonk_tpu_torch.parallel import dist_bn254 as DB
+    from plonk_tpu_torch.parallel import mesh as MS
+    sel, cp, a, b, c = bn254_mul_circuit(8)
+    ch = words_vec([111111, 222222, 333333, 444444, 555555])
+    rnd = words_vec(range(17, 26))
+    table = {"big_row": 8, "all_to_all": 10, "all_gather": 1,
+             "big_commit": 2}
+    runs = [("cpu", None, "1", None), (dev, None, "1", table),
+            (dev, "plain", "1", {"big_row": 8, "big_commit": 2}),
+            (dev, None, "0", {"big_row": 8, "all_to_all": 10,
+                              "all_gather": 1})]
+    proofs, ctxs = [], {}
+    for d, exchange, fb, launches in runs:
+        if d not in ctxs:
+            # empty caches of the device's own: each builds its SRS and table
+            bn254_env(monkeypatch, tmp_path / str(d))
+            ctxs[d] = PB.bn254_setup(8, secret=987654321, device=d)
+        monkeypatch.setenv("PLONK_TPU_BN254_FB", fb)
+        prims = DB.make_dist_bn254_prims(
+            ctxs[d], MS.make_1d_mesh("sp", 2, device=d), exchange=exchange)
+        prover = PB.make_prover_bn254(ctxs[d], sel, cp, prims=prims)
+        kernels.reset_counts()
+        proof, diags = prover(a, b, c, ch, rnd)
+        assert bool(diags.all_ok())
+        if launches is not None:
+            torch.cuda.synchronize()
+            assert dict(kernels.LAUNCHES) == launches
+        proofs.append(proof)
+    for proof in proofs[1:]:
+        for name in PB.POINT_FIELDS:
+            for k in range(3):
+                assert torch.equal(getattr(proofs[0], name)[k],
+                                   getattr(proof, name)[k].cpu()), name
+        for name in PB.SCALAR_FIELDS:
+            assert torch.equal(getattr(proofs[0], name),
+                               getattr(proof, name).cpu()), name
