@@ -25,7 +25,9 @@ Phases, each announced on its own line:
 With --profile a phase 8 follows: the time of each prover stage, the
 device kernels and device time of a proof under torch.profiler (and so
 the device's idle share), and the verifier's split between its G1
-algebra and its pairings:
+algebra and its pairings; phase 13 adds the BN254 verifier's split,
+phase 32 GLV's warm call under torch.profiler (device events, device
+time, idle share) and phase 35 a sharded 2^12 BN254 proof's:
 
     python3 chip_smoke.py --profile
 
@@ -194,10 +196,10 @@ that phase 10 writes the SRS and table files and phase 34 loads them):
      generator, random scalars below r from default_rng(0), 8-bit
      windows; plain Pippenger and GLV each equal to (sum s_i) G from a
      python-int ladder on every roll; points/s over one more roll of
-     the scalars after a warm call (GLV's read by torch.profiler: device
-     events, device time, so the idle share), peak memory, no kernel
-     launched; the window combination (Horner's rule) timed alone with
-     its operator calls;
+     the scalars after a warm call (with --profile GLV's read by
+     torch.profiler: device events, device time, so the idle share),
+     peak memory, no kernel launched; the window combination (Horner's
+     rule) timed alone with its operator calls;
  33. on phases 10-12's context, table and circuit: K4 at B = 9 equal to
      _commit_many by GLV and by plain Pippenger on the same scalars (the
      JAX package's check_bn254_pallas_commit_parity), each commit call
@@ -221,15 +223,36 @@ parallel/dist_bn254.py), its shards all on the card:
      path's rows of 64 and 128, on random and edge rows; K9 against
      all_to_all_plain at every 16-limb shape of the 2^12 proof on 8
      shards and its precompute; K8's generic all-gather at 8 x (1, 16)
-     against the plain exchange; K4 on the first and last shard's table
+     against the plain exchange, timed beside its library call
+     (torch.cat of 8 copies of the shards); K4 on the first and last shard's table
      slice against its plain version; then on phases 10-12's context:
      make_prover_bn254 under make_dist_bn254_prims on 8 shards, launches
      counted exactly (K3 8, K9 10, K8 1, K4 8 a proof), diagnostics, the
      proof equal to phase 12's, and again under plain exchanges (no K8 or
      K9) and under PLONK_TPU_BN254_FB=0 (no K4); proofs/s of the
-     single-device and the sharded prover in turns, a sharded proof's
-     peak memory, and its device events, device time and idle share
-     under torch.profiler.
+     single-device and the sharded prover in turns (one proof each), a
+     sharded proof's peak memory, and with --profile its device events,
+     device time and idle share under torch.profiler.
+
+Then the sharded MSM (parallel/dist_msm.py) and the port's entry points
+(plonk_tpu_torch/entry.py, utils/profiling.py):
+ 36. dist_msm in the JAX package's bench_msm configuration (2^16
+     multiples of the toy generator and 5-bit scalars from
+     default_rng(1), 5-bit windows) on 8 shards of the card, through K8
+     (one launch, nothing else) and through plain copies (no launch),
+     equal to the card's single-device msm_pippenger and to the CPU
+     port's dist_msm; K8's generic all-gather at the partials' shape,
+     8 x (1, 3) int64 rows, against the plain exchange on random words
+     and on the call's partials, timed, with its bound and its library
+     call (torch.cat of 8 copies of the rows); points/s of the
+     sharded and the single-device MSM in turns; entry() on the card
+     (r_z = 15, every word equal to the CPU port's, no kernel);
+     dryrun_multichip(8) on the card under empty caches of its own (all
+     five legs ok, each timed; K2, K3, K4, K8 and K9 launched, K1 not);
+     profiling.trace_to around one sharded dist_msm call, after the
+     script's earlier torch.profiler sessions: the trace's device events
+     and device time (so the idle share) and whether K8's launch is
+     among them.
 
 With --dist-events MODE only that reading runs, in a process of its own,
 and prints one JSON line: MODE scan-cuda or scan-plain (the sharded grand
@@ -255,6 +278,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -266,6 +290,7 @@ import numpy as np
 import torch
 
 try:
+    from plonk_tpu_torch import entry as EN
     from plonk_tpu_torch.models import fiat_shamir as FS
     from plonk_tpu_torch.models import fs_poseidon as FSP
     from plonk_tpu_torch.models import plonk as PL
@@ -291,18 +316,22 @@ try:
     from plonk_tpu_torch.ops import row_stages as RS
     from plonk_tpu_torch.ops import bigfield as BF
     from plonk_tpu_torch.ops.bigfield import BigMontField
-    from plonk_tpu_torch.ops.field import MontField
+    from plonk_tpu_torch.ops.field import Field, MontField
+    from plonk_tpu_torch.ops.msm import msm_pippenger
     from plonk_tpu_torch.parallel import batch as TB
     from plonk_tpu_torch.parallel import collectives as CL
     from plonk_tpu_torch.parallel import dist_bigntt as DBN
     from plonk_tpu_torch.parallel import dist_bn254 as DB254
+    from plonk_tpu_torch.parallel import dist_msm as DM
     from plonk_tpu_torch.parallel import dist_ntt as DN
     from plonk_tpu_torch.parallel import dist_prover as DP
     from plonk_tpu_torch.parallel import dist_scan as DS
     from plonk_tpu_torch.parallel import mesh as MS
     from plonk_tpu_torch.utils import kernels
+    from plonk_tpu_torch.utils import profiling as PF
     from plonk_tpu_torch.utils import serialization as SZ
-    from plonk_tpu_torch.utils.params import BN254_FR, SCALED_FQ, SCALED_FR
+    from plonk_tpu_torch.utils.params import (BN254_FR, GF101, SCALED_FQ,
+                                              SCALED_FR, TOY_CURVE)
 except ModuleNotFoundError as exc:   # the script without the repository
     raise SystemExit(f"chip_smoke: {exc}; run it from the root of the "
                      "repository") from exc
@@ -312,7 +341,7 @@ N_SMALL = 16
 CH = [1111, 2222, 3333, 4444, 5555]
 RND = list(range(1, 10))
 PROOF_REPS = 5
-TURN_REPS = 2       # proofs of each prims in phases 16 and 19's turns
+TURN_REPS = 1       # proofs of each prims in phases 16 and 19's turns
 # the JAX package's n = 16 proof for (CH, RND), decoded (standard form)
 ANCHOR_SCALARS = dict(a_z=11535495, b_z=4125738, c_z=8864595,
                       s_sigma_1_z=31108, s_sigma_2_z=85023238,
@@ -385,7 +414,7 @@ TOY_MODES = {"naive": dict(), "table": dict(commit_mode="table"),
 TOY_BATCH = 1 << 16          # proofs in phase 21's batch
 TOY_CPU_LANES = 1024         # lanes held against the CPU port
 TOY_SEED = 20260101
-TOY_TIMED = {1: 10, 1024: 3, TOY_BATCH: 2}    # batch -> timed reps
+TOY_TIMED = {1: 3, 1024: 2, TOY_BATCH: 2}     # batch -> timed reps
 
 
 def bound_ms(n_bytes: float, n_imad: float):
@@ -535,15 +564,6 @@ def affine_err(a, b) -> int:
                int((a[2] != b[2]).sum()))
 
 
-def proofs_equal(p, q) -> bool:
-    """Word equality of two proofs of either curve: nine affine points
-    (x, y, inf), then seven scalars."""
-    return (all(torch.equal(getattr(p, f)[k].cpu(), getattr(q, f)[k].cpu())
-                for f in p._fields[:9] for k in range(3))
-            and all(torch.equal(getattr(p, f).cpu(), getattr(q, f).cpu())
-                    for f in p._fields[9:]))
-
-
 STAGES = ("_stage_prep", "_stage_grand_product", "_stage_quotient",
           "_stage_openings")
 PROFILE_REPS = 3
@@ -590,9 +610,6 @@ def staged_proofs(mod, prove, prims, call, reps: int):
     return mean
 
 
-DEVICE_EVENT_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
 def trace_device_events(prof) -> list:
     """(name, microseconds) of each device event of a finished
     torch.profiler run, read from the Chrome trace it exports."""
@@ -600,12 +617,9 @@ def trace_device_events(prof) -> list:
     path = os.path.join(kernels.BUILD_DIR, "profile_trace.json")
     prof.export_chrome_trace(path)
     try:
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+        return PF.device_events(path)
     finally:
         os.remove(path)
-    return [(e["name"], float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_KINDS]
 
 
 def profiled_proofs(run, reps: int):
@@ -952,7 +966,7 @@ def bn254_phases(dev, card: str, profile: bool):
         check(bool(diags.all_ok()), f"n=8 diagnostics on {d}")
         small.append(proof)
     p_cpu, p_gpu = small
-    check(proofs_equal(p_cpu, p_gpu), "n=8 GPU proof equals CPU proof")
+    check(EN.proofs_equal(p_cpu, p_gpu), "n=8 GPU proof equals CPU proof")
     for name, v in BN_ANCHOR_SCALARS.items():
         check(from_words(getattr(p_gpu, name).cpu()) == v, f"anchor {name}")
     for name, (x, y) in BN_ANCHOR_POINTS.items():
@@ -1194,7 +1208,7 @@ def mxu_prims_check(ctx, circuit, ref_proof):
                      {"row_stages": 2, "commit_many": 1}],
           "mxu precompute and proof launches (no K7)")
     check(bool(diags.all_ok()), f"mxu 2^16 diagnostics {diags}")
-    check(proofs_equal(proof, ref_proof),
+    check(EN.proofs_equal(proof, ref_proof),
           "mxu proof equals the default prims' proof")
     return prover
 
@@ -1302,7 +1316,7 @@ def prims_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover):
         check(counts == {"row_stages": 2, kname: per_proof, "commit_many": 1},
               f"{name} proof launches")
         check(bool(diags.all_ok()), f"{name} 2^16 diagnostics {diags}")
-        check(proofs_equal(proof, ref_proof),
+        check(EN.proofs_equal(proof, ref_proof),
               f"{name} proof equals the default prims' proof")
         launches[kname] = counts[kname]
         provers[name] = prover
@@ -1698,7 +1712,7 @@ def dist_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover, vk):
         check(counts == DIST_LAUNCHES[exchange],
               f"sharded {exchange} launches {counts}")
         check(bool(diags.all_ok()), f"sharded {exchange} diagnostics {diags}")
-        check(proofs_equal(proof, ref_proof),
+        check(EN.proofs_equal(proof, ref_proof),
               f"sharded {exchange} proof equals phase 6's proof")
         if exchange == "cuda":
             launches = counts
@@ -1789,8 +1803,8 @@ def toy_phases(dev, card: str) -> None:
             std = PL.prove(fix_ctx, cons, asg, ch, rnd, dialect="standard")
             out[d] = (ref, std, fix_ctx)
         (ref, std, _), (gref, gstd, gctx) = out["cpu"], out[dev]
-        check(proofs_equal(ref[0], gref[0]) and diags_equal(ref[1], gref[1])
-              and proofs_equal(std[0], gstd[0])
+        check(EN.proofs_equal(ref[0], gref[0]) and diags_equal(ref[1], gref[1])
+              and EN.proofs_equal(std[0], gstd[0])
               and diags_equal(std[1], gstd[1]),
               f"toy {mode}: the card's proofs equal the CPU port's")
         check(bool(gref[1].all_ok()) and bool(gstd[1].all_ok()),
@@ -1830,20 +1844,21 @@ def toy_phases(dev, card: str) -> None:
     check(not launches, f"the toy path launches no kernel: {launches}")
     single, single_d = PL.prove(ctx, cons, asg, ch, rnd)
     check(toy_tail_ok(proofs, 0) and bool(single_d.all_ok())
-          and proofs_equal(lanes(proofs, 0), single)
+          and EN.proofs_equal(lanes(proofs, 0), single)
           and diags_equal(lanes(diags, 0), single_d),
           "lane 0 has the golden tail and equals the single proof")
     cpu_ctx = TP.canonical_context(srs_mode="fixed", device="cpu")
     head = [a[:TOY_CPU_LANES] for a in args]
     cpu = TB.make_batched_prover(cpu_ctx, sel, cp)(*head)
     sl = slice(0, TOY_CPU_LANES)
-    check(proofs_equal(lanes(proofs, sl), cpu[0])
+    check(EN.proofs_equal(lanes(proofs, sl), cpu[0])
           and diags_equal(lanes(diags, sl), cpu[1]),
           f"the first {TOY_CPU_LANES} lanes equal the CPU port's")
     mesh = MS.make_1d_mesh("dp", D_MESH, device=dev)
     sharded, sharded_s = wall(lambda: TB.make_sharded_prover(
         ctx, sel, cp, mesh)(*args))
-    check(proofs_equal(sharded[0], proofs) and diags_equal(sharded[1], diags),
+    check(EN.proofs_equal(sharded[0], proofs)
+          and diags_equal(sharded[1], diags),
           "the sharded prover equals the batched prover")
     ok = torch.stack(list(diags)).all(0)
     failed = {f: int((~getattr(diags, f)).sum()) for f in diags._fields}
@@ -1910,7 +1925,7 @@ def fs_prover_checks(kind, prover, prove, verify, replay, ctx, circuit,
     check(np.array_equal(ch, out.challenge),
           f"{kind} challenges equal the host replay's")
     interactive, d = ref_prover(a, b, c, out.challenge, RND)
-    check(bool(d.all_ok()) and proofs_equal(interactive, out.proof),
+    check(bool(d.all_ok()) and EN.proofs_equal(interactive, out.proof),
           f"{kind} proof equals make_prover's for its challenges")
     ok, verify_s = wall(lambda: verify(ctx, prover.vk, out))
     rejected = {name: not verify(ctx, prover.vk, out._replace(proof=bad))
@@ -2009,7 +2024,7 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
     check(small[0] == small[1], "n = 16 proof and SRS bytes: card == CPU")
     data, ser_s = wall(lambda: SZ.proof_to_bytes(ref_proof, Fq.p, Fr.p))
     back = SZ.proof_from_bytes(data, dev)
-    check(proofs_equal(back, ref_proof) and back.r_z.device == dev,
+    check(EN.proofs_equal(back, ref_proof) and back.r_z.device == dev,
           "the 2^16 proof round-trips on the card")
     srs_data, srs_s = wall(lambda: SZ.srs_to_bytes(ctx.srs, Fq.p))
     srs2, srs_load_s = wall(lambda: SZ.srs_from_bytes(srs_data, "fixed",
@@ -2039,7 +2054,7 @@ def fs_phases(dev, card: str, ctx, circuit, ref_proof, ref_prover,
     kernels.reset_counts()
     (proof, diags), checked_s = wall(lambda: PS.prove_scaled_checked(
         ctx, sel, cp, a, b, c, CH, RND))
-    check(bool(diags.all_ok()) and proofs_equal(proof, ref_proof),
+    check(bool(diags.all_ok()) and EN.proofs_equal(proof, ref_proof),
           "prove_scaled_checked gives phase 6's proof")
     bad_cp = np.array(cp)
     bad_cp[1, 7, 1] = n + 1
@@ -2249,7 +2264,7 @@ def bn254_fs_checks(kind, make, replay, bn, times: dict, lanes):
     times[f"{kind}_replays_s"] = time.perf_counter() - t
     (out, _), (a, b, c, rnd) = outs[0], lanes[0]
     (single, d), single_s = wall(lambda: prover(a, b, c, out.challenge, rnd))
-    check(bool(d.all_ok()) and proofs_equal(single, out.proof),
+    check(bool(d.all_ok()) and EN.proofs_equal(single, out.proof),
           f"{kind} proof equals make_prover_bn254's for its challenges")
     return fs, outs, single, single_s
 
@@ -2320,7 +2335,7 @@ def scaled_batch_phase(dev, card: str) -> None:
     t = time.perf_counter()
     for i in range(BATCH):
         single, sd = prover(a[i], b[i], c[i], chs[i], rnds(0)[i])
-        check(bool(sd.all_ok()) and proofs_equal(FSP._lane(proof, i),
+        check(bool(sd.all_ok()) and EN.proofs_equal(FSP._lane(proof, i),
                                                  single),
               f"lane {i} equals the single proof of its inputs")
     singles_s = time.perf_counter() - t
@@ -2417,7 +2432,7 @@ def fs_batch_phase(dev, card: str, ctx, fsp) -> None:
         s1, sd = fsp.prove(a[i], b[i], c[i], rnds(0)[i])
         check(bool(d.all_ok()) and bool(sd.all_ok()) and m.nonce == s1.nonce
               and np.array_equal(m.challenge, s1.challenge)
-              and proofs_equal(m.proof, s1.proof),
+              and EN.proofs_equal(m.proof, s1.proof),
               f"lane {i} equals prove() of its inputs")
     singles_s = time.perf_counter() - t
     ok, verify_s = wall(lambda: FSP.verify_scaled_fs_poseidon(
@@ -2555,9 +2570,9 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
     check(launches == {"big_row": 4, "big_commit": 1},
           "a batch launches K3 and K4 as one proof does (4, 1)")
     check(bool(diags.all_ok()) and all(
-        proofs_equal(FSP._lane(proof, i), out.proof)
+        EN.proofs_equal(FSP._lane(proof, i), out.proof)
         for i, (out, _) in enumerate(many))
-        and proofs_equal(FSP._lane(proof, 0), single),
+        and EN.proofs_equal(FSP._lane(proof, 0), single),
         "every lane of the batch equals its FS lane, lane 0 its single "
         "proof")
     bn_batch_kernels(dev, ctx)
@@ -2583,10 +2598,11 @@ def bn254_batch_phase(dev, card: str, bn: dict, blake) -> None:
 
 MSM_N = 1 << 14          # phase 32's points (bench.py's bench_bn254_msm)
 MSM_TIMED = 1            # phase 32's timed calls a kind, after a warm one
+MSM_PROFILED = ("glv",)  # kinds whose warm call torch.profiler reads under
+                         # --profile (its trace takes ~60 us an event to
+                         # parse)
 MSM_KINDS = {"pippenger": lambda F, pts, w: BC.big_msm_pippenger(F, pts, w),
              "glv": lambda F, pts, w: GLV.big_msm_glv(F, pts, w)}
-MSM_PROFILED = ("glv",)  # kinds whose warm call torch.profiler reads (its
-                         # trace takes ~60 us an event to parse)
 
 
 @contextlib.contextmanager
@@ -2648,15 +2664,16 @@ def affine_ints(F, out) -> list:
             for a, b, i in zip(xs, ys, inf.tolist())]
 
 
-def msm_phase(dev, card: str) -> None:
+def msm_phase(dev, card: str, profile: bool) -> None:
     """Phase 32: plain Pippenger and GLV at MSM_N points in the JAX
     package's bench_bn254_msm configuration (every base the generator,
     scalars from default_rng(0), below r, 8-bit windows), each equal to
     (sum s_i mod r) G from a host ladder; points/s over MSM_TIMED distinct
     rolls of the scalars after a warm call, whose peak memory is taken
-    and which torch.profiler reads for the kinds of MSM_PROFILED (device
-    events and device time); no kernel launched; the window combination
-    (Horner's rule) timed alone, with its operator calls."""
+    and which, with `profile`, torch.profiler reads for the kinds of
+    MSM_PROFILED (device events and device time); no kernel launched; the
+    window combination (Horner's rule) timed alone, with its operator
+    calls."""
     phase(f"32 BN254 MSM at {MSM_N} points (bench_bn254_msm): plain "
           "Pippenger and GLV")
     Fq = BigMontField(BC.BN254_FQ)
@@ -2678,7 +2695,8 @@ def msm_phase(dev, card: str) -> None:
         kernels.reset_counts()
         first = []
         warm = lambda rep: first.append(msm(Fq, pts, rolls[0]))
-        if name in MSM_PROFILED:
+        profiled = profile and name in MSM_PROFILED
+        if profiled:
             n_dev, dev_us, warm_s, _ = profiled_proofs(warm, 1)
         else:
             _, warm_s = wall(lambda: warm(0))
@@ -2709,7 +2727,7 @@ def msm_phase(dev, card: str) -> None:
               f"addition): {(W - 1) * (wb * dbl_n + add_n)} operator calls "
               f"at {dbl_n} a doubling and {add_n} an addition) "
               f"{horner_s:.3f} s alone")
-        if name in MSM_PROFILED:
+        if profiled:
             print(f"{name}'s warm call under torch.profiler: {n_dev:.0f} "
                   f"device events and {dev_us / 1e3:.3f} ms of device time,"
                   f" against the timed call (unprofiled, the same "
@@ -2776,7 +2794,7 @@ def commit_routes_phase(dev, card: str, bn: dict) -> None:
     check("big_commit" not in vk_launches, "the vk without K4")
     check(launches == {"big_row": 4},
           f"the GLV-committed proof launches K3 4, K4 0: {launches}")
-    check(bool(diags.all_ok()) and proofs_equal(proof, bn["proof"]),
+    check(bool(diags.all_ok()) and EN.proofs_equal(proof, bn["proof"]),
           "the PLONK_TPU_BN254_FB=0 proof == phase 12's, word for word")
     check(all(torch.equal(x, y) for p, q in zip(vk, bn["vk"])
               for x, y in zip(p, q)),
@@ -2825,7 +2843,7 @@ def cache_phase(dev, card: str, bn: dict, timings: dict) -> None:
 
 BN_DIST_D = 8            # phase 35's shards at 2^12 (JAX's 8-device mesh)
 BN_DIST_SMALL_D = 2      # phase 35's shards at n = 8 (JAX's TestDistProver)
-BN_DIST_REPS = 2         # phase 35's single and sharded proofs, in turns
+BN_DIST_REPS = 1         # phase 35's single and sharded proofs, in turns
 BN_DIST_PATH = f"sharded BN254 at 2^12 on {BN_DIST_D} shards"
 BN_DIST_KERNELS = {**BN254_KERNELS, **DIST_KERNELS}
 DIST_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2908,7 +2926,7 @@ def bn_dist_small(dev, bn: dict) -> None:
                 prims=DB254.make_dist_bn254_prims(ctx, mesh)))
         launches = dict(kernels.LAUNCHES)
         check(bool(diags.all_ok()), f"n=8 sharded FB={fb} diagnostics")
-        check(proofs_equal(proof, bn["proof8"]),
+        check(EN.proofs_equal(proof, bn["proof8"]),
               f"n=8 sharded FB={fb} proof == the single-device proof")
         check(recorded_proof_equal(proof, rec),
               f"n=8 sharded FB={fb} proof == JAX's sharded proof")
@@ -2974,13 +2992,49 @@ def bn_dist_k3(dev, ctx, errs: dict, bounds: dict) -> dict:
     return kms
 
 
+def gather_check(label: str, cases: dict, bound, errs: dict, bounds: dict,
+                 kms: dict) -> float:
+    """K8's generic all-gather against the plain exchange on each of
+    `cases` ({kind: D shards of one shape}), word-equal, one launch a call;
+    the last case timed (kernel_times, under kms["all_gather <label>"]),
+    and so is the one PyTorch call that computes the same words,
+    torch.cat of D copies of the shards (every destination's rows in one
+    tensor), by CUDA events queued ahead. `bound` is K8's on these shards.
+    Returns the library call's ms."""
+    for kind, xs in cases.items():
+        before = kernels.LAUNCHES["all_gather"]
+        got = CL.all_gather(xs, "cuda")
+        want = CL.all_gather(xs, "plain")
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["all_gather"] == before + 1,
+              f"all_gather {label}: one launch a call")
+        err = max(int((a - b).abs().max()) for a, b in zip(got, want,
+                                                           strict=True))
+        print(f"all_gather of {label}, {kind}: max_abs_err {err}")
+        check(err == 0, f"K8's generic all-gather word-equal at {label}, "
+              f"{kind}")
+        errs["all_gather"] = max(errs.get("all_gather", 0), err)
+    D = len(xs)
+    library = lambda: torch.cat(xs * D)
+    check(torch.equal(library(), torch.cat(want)),
+          f"torch.cat of {D} copies == the plain exchange at {label}")
+    bounds["all_gather"] = bound
+    kms[f"all_gather {label}"] = kernel_times(
+        lambda: CL.all_gather(xs, "cuda"), lambda: CL.all_gather(xs, "plain"))
+    lib = cuda_ms(library, reps=100, queue_ahead=True)
+    print(f"all_gather {label}: bound {bound[0]:.9f} ms ({bound[1]}); "
+          f"library (torch.cat of {D} copies) {lib:.6f} ms (CUDA events, "
+          "queued ahead)")
+    return lib
+
+
 def bn_dist_exchanges(dev, errs: dict, bounds: dict):
     """K9 against all_to_all_plain at every bn_dist_cases shape of the 2^12
     proof on BN_DIST_D shards, and K8's generic all-gather against the
-    plain exchange at BN_DIST_D x (1, 16), word-equal, one launch a call;
-    K9 timed at the proof's forward transposes (split after concat).
-    Returns (kernel_times entries, the plain all-to-all's queued ms of the
-    first timed case, the shapes checked)."""
+    plain exchange at BN_DIST_D x (1, 16) (gather_check); K9 timed at the
+    proof's forward transposes (split after concat). Returns
+    (kernel_times entries, the library ms of K9 (the plain all-to-all's
+    queued ms of the first timed case) and of K8, the shapes checked)."""
     g = torch.Generator(device="cpu").manual_seed(35)
     kms, library, tested = {}, None, set()
     for name, shape, split, concat, per_proof in bn_dist_cases(N_BN,
@@ -3014,25 +3068,11 @@ def bn_dist_exchanges(dev, errs: dict, bounds: dict):
               f"floor {int64_floor_ms(2 * BN_DIST_D * elems * 16):.6f} ms")
     xs = [torch.randint(0, 1 << 16, (1, 16), generator=g).to(dev)
           for _ in range(BN_DIST_D)]
-    before = kernels.LAUNCHES["all_gather"]
-    got = CL.all_gather(xs, "cuda")
-    want = CL.all_gather(xs, "plain")
-    torch.cuda.synchronize()
-    check(kernels.LAUNCHES["all_gather"] == before + 1,
-          "all_gather (1, 16): one launch a call")
-    err = max(int((a - b).abs().max()) for a, b in zip(got, want,
-                                                       strict=True))
-    print(f"all_gather of {BN_DIST_D} x (1, 16) shard totals: max_abs_err "
-          f"{err}")
-    check(err == 0, "K8's generic all-gather word-equal at (1, 16)")
-    errs["all_gather"] = max(errs.get("all_gather", 0), err)
+    gather_lib = gather_check(
+        f"{BN_DIST_D} x (1, 16) shard totals", {"random": xs},
+        big_exchange_bound("all_gather", BN_DIST_D, 1), errs, bounds, kms)
     tested.add(("all_gather", (1, 16)))
-    bounds["all_gather"] = big_exchange_bound("all_gather", BN_DIST_D, 1)
-    kms["all_gather (1, 16) shard totals"] = kernel_times(
-        lambda: CL.all_gather(xs, "cuda"), lambda: CL.all_gather(xs, "plain"))
-    print(f"all_gather (1, 16): bound {bounds['all_gather'][0]:.9f} ms "
-          "(bytes)")
-    return kms, library, tested
+    return kms, {"all_to_all": library, "all_gather": gather_lib}, tested
 
 
 def bn_dist_k4(dev, ctx, mesh, errs: dict, bounds: dict) -> dict:
@@ -3074,9 +3114,10 @@ def bn_dist_k4(dev, ctx, mesh, errs: dict, bounds: dict) -> dict:
     return kms
 
 
-def dist_bn254_phase(dev, card: str, bn: dict) -> list:
+def dist_bn254_phase(dev, card: str, bn: dict, profile: bool) -> list:
     """Phase 35: the mesh-sharded BN254 prover (parallel/dist_bn254.py) on
-    the card; returns the kernel entries of its 2^12 path."""
+    the card, with `profile` a sharded proof's device events, device time
+    and idle share; returns the kernel entries of its 2^12 path."""
     phase("35 the sharded BN254 prover: n = 8 on 2 shards, K3, K4, K8 and "
           f"K9 at its shapes, 2^12 on {BN_DIST_D} shards")
     bn_dist_small(dev, bn)
@@ -3117,7 +3158,7 @@ def dist_bn254_phase(dev, card: str, bn: dict) -> list:
         check(counts == BN_DIST_LAUNCHES[mode],
               f"sharded 2^12 proof, {mode}: launches {counts}")
         check(bool(diags.all_ok()), f"sharded 2^12 diagnostics, {mode}")
-        check(proofs_equal(proof, bn["proof"]),
+        check(EN.proofs_equal(proof, bn["proof"]),
               f"sharded 2^12 proof ({mode}) == phase 12's, word for word")
         provers[mode] = prover
         if mode == "kernels":
@@ -3141,9 +3182,6 @@ def dist_bn254_phase(dev, card: str, bn: dict) -> list:
                 peak = torch.cuda.max_memory_allocated()
             check(bool(d.all_ok()), f"{name} rep {rep} diagnostics")
             total[name] += sec
-    proof_s = total["sharded"] / BN_DIST_REPS
-    n_dev, dev_us, prof_s, top = profiled_proofs(
-        lambda rep: provers["kernels"](a, b, c, ch, rnd_rep(20 + rep)), 1)
     print(f"card: {card}")
     for name in turns:
         print(f"bn_dist proofs_per_s {name} "
@@ -3152,12 +3190,193 @@ def dist_bn254_phase(dev, card: str, bn: dict) -> list:
     print(f"sharded proof peak memory {peak / 2 ** 30:.3f} GiB "
           f"({(peak - base) / 2 ** 30:.3f} GiB above the {base / 2 ** 30:.3f}"
           " GiB allocated before it)")
-    print_profile(n_dev, dev_us, prof_s, top, proof_s, 1)
+    if profile:
+        print_profile(*profiled_proofs(
+            lambda rep: provers["kernels"](a, b, c, ch, rnd_rep(20 + rep)),
+            1), total["sharded"] / BN_DIST_REPS, 1)
     print_kernel_times(kms)
     entries = kernel_entries(BN_DIST_KERNELS, kms, launches, errs, bounds,
-                             {"all_to_all": library})
+                             library)
     for e in entries:
         e["path"] = BN_DIST_PATH
+    return entries
+
+
+MSM_DIST_N = 1 << 16     # phase 36's points (bench.py's bench_msm)
+MSM_DIST_D = 8           # phase 36's shards (the dry run's mesh)
+MSM_DIST_REPS = 2        # phase 36's sharded and single-device calls, in turns
+MSM_DIST_PATH = f"dist_msm at 2^16 toy points on {MSM_DIST_D} shards"
+TRACE_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "plonk_tpu_trace")
+DRYRUN_DIR = os.path.join(os.path.dirname(kernels.BUILD_DIR), "dryrun_caches")
+# the dry run's kernels on the card: K9 (dist-intt, the sharded provers'
+# transposes), K8 (dist-msm's gather, the scaled prefix scan, the BN254
+# totals), K2 (the scaled commits), K3 and K4 (the BN254 leg); no K1 (its
+# transforms are below ntt's 4096-point blocked layout)
+DRYRUN_KERNELS = ("all_to_all", "all_gather", "commit_many", "big_row",
+                  "big_commit")
+
+
+def toy_msm_inputs(dev, n: int):
+    """bench_msm's draw: n multiples k_i G of the toy generator, k_i in
+    [1, 17) and scalars in [0, 17) from default_rng(1) (5-bit ladders)."""
+    F = Field(GF101)
+    rng = np.random.default_rng(1)
+    ks = torch.as_tensor(rng.integers(1, 17, size=n), device=dev)
+    sc = torch.as_tensor(rng.integers(0, 17, size=n), device=dev)
+    return C.g1_mul(F, C.g1_generator(TOY_CURVE, F, dev), ks, nbits=5), sc
+
+
+def toy_point(p) -> tuple:
+    return int(p.x), int(p.y), bool(p.inf)
+
+
+def partials_bound(D: int):
+    """K8's least time on dist_msm's partials: D partials read once and
+    D * D written, a partial's values 3 bytes (x and y below 101, the
+    infinity flag); no arithmetic."""
+    return bound_ms((D + D * D) * 3, 0)
+
+
+def msm_trace(dev) -> dict:
+    """One sharded dist_msm call (bench_msm's inputs on MSM_DIST_D shards)
+    under profiling.trace_to, after a warm one: the written trace's device
+    events, their summed device ms, and how many of them are K8's
+    all_gather_kernel."""
+    F = Field(GF101)
+    pts, sc = toy_msm_inputs(dev, MSM_DIST_N)
+    mesh = MS.make_1d_mesh("sp", MSM_DIST_D, device=dev)
+    call = lambda: DM.dist_msm(F, mesh, pts, sc, window_bits=5,
+                               scalar_bits=5)
+    call()
+    torch.cuda.synchronize()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with PF.trace_to(TRACE_DIR):
+        call()
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace_to wrote one trace: {files}")
+    events = PF.device_events(files[0])
+    return dict(events=len(events),
+                device_ms=sum(us for _, us in events) / 1e3,
+                k8_events=sum("all_gather_kernel" in name
+                              for name, _ in events))
+
+
+def dist_msm_phase(dev, card: str) -> list:
+    """Phase 36: the sharded MSM in bench_msm's configuration on
+    MSM_DIST_D shards of the card (through K8 and through plain copies,
+    equal to the single-device msm_pippenger and to the CPU port's),
+    K8's generic all-gather at the partials' shape against the plain
+    exchange, points/s in turns; the port's entry() against the CPU port;
+    dryrun_multichip(8); trace_to around a sharded call. Returns the
+    kernel entry of K8 on this path."""
+    phase(f"36 dist_msm at {MSM_DIST_N} toy points on {MSM_DIST_D} shards "
+          "(bench_msm), K8 at the partials' shape, entry(), "
+          "dryrun_multichip(8), trace_to")
+    t36 = time.perf_counter()
+    F = Field(GF101)
+    mesh = MS.make_1d_mesh("sp", MSM_DIST_D, device=dev)
+    pts, sc = toy_msm_inputs(dev, MSM_DIST_N)
+    msm = lambda s, exchange=None: DM.dist_msm(
+        F, mesh, pts, s, window_bits=5, scalar_bits=5, exchange=exchange)
+    single = lambda s: msm_pippenger(F, pts, s, window_bits=5, scalar_bits=5)
+    cpu_pts, cpu_sc = toy_msm_inputs("cpu", MSM_DIST_N)
+    cpu_pt, cpu_s = wall(lambda: toy_point(DM.dist_msm(
+        F, MS.make_1d_mesh("sp", MSM_DIST_D, device="cpu"), cpu_pts, cpu_sc,
+        window_bits=5, scalar_bits=5)))
+    want, single_s = wall(lambda: toy_point(single(sc)))
+    points = {}
+    for mode, exchange, launches in (("kernels", None, {"all_gather": 1}),
+                                     ("plain exchange", "plain", {})):
+        kernels.reset_counts()
+        got, sec = wall(lambda: msm(sc, exchange))
+        counts = dict(kernels.LAUNCHES)
+        print(f"dist_msm, {mode}: first call {sec:.3f} s, launches {counts}, "
+              f"point {toy_point(got)}")
+        check(counts == launches, f"dist_msm ({mode}) launches {counts}")
+        check(got.x.device == mesh.device, "dist_msm's point on the card")
+        points[mode] = toy_point(got)
+        if mode == "kernels":
+            path_launches = counts
+    check(points["kernels"] == points["plain exchange"] == want == cpu_pt,
+          "dist_msm == single-device msm_pippenger == the CPU port's")
+    print(f"dist_msm == the card's single-device msm_pippenger (first call "
+          f"{single_s:.3f} s) == the CPU port's dist_msm ({cpu_s:.3f} s): "
+          f"{want}")
+
+    # K8 alone at the partials' shape: D (1, 3) int64 rows, random 62-bit
+    # words and the rows of this call (timed)
+    errs, bounds, kms = {}, {}, {}
+    part = msm_pippenger(F, C.G1(*(torch.stack(MS.shard_vector(mesh, t))
+                                   for t in pts)),
+                         torch.stack(MS.shard_vector(mesh, sc)), 5, 5)
+    rows = torch.stack([part.x, part.y, part.inf.long()], -1)
+    g = torch.Generator(device="cpu").manual_seed(36)
+    library = gather_check(
+        f"{MSM_DIST_D} x (1, 3) dist_msm partials",
+        {"random": [torch.randint(0, 1 << 62, (1, 3), generator=g).to(dev)
+                    for _ in range(MSM_DIST_D)],
+         "partials": list(rows[:, None].unbind(0))},
+        partials_bound(MSM_DIST_D), errs, bounds, kms)
+
+    total = collections.Counter()
+    turns = {"sharded": msm, "single-device": single}
+    for rep in range(MSM_DIST_REPS):
+        s = torch.roll(sc, rep + 1)          # bench_msm's rolled scalars
+        for name, fn in turns.items():
+            _, sec = wall(lambda: fn(s))
+            total[name] += sec
+    msm_s = total["sharded"] / MSM_DIST_REPS
+    print(f"card: {card}")
+    for name in turns:
+        print(f"dist_msm points_per_s {name} "
+              f"{MSM_DIST_REPS * MSM_DIST_N / total[name]:.1f} "
+              f"({MSM_DIST_REPS} synchronised calls, in turns, "
+              f"{total[name] / MSM_DIST_REPS:.6f} s a call)")
+
+    outs = []
+    for d in ("cpu", dev):
+        fn, args = EN.entry(device=d)
+        kernels.reset_counts()
+        out, sec = wall(lambda: fn(*args))
+        check(not dict(kernels.LAUNCHES), f"entry() on {d}: no kernel")
+        outs.append(out)
+        print(f"entry() on {d}: r_z = {int(out[0].r_z)}, {sec:.3f} s")
+    check(int(outs[1][0].r_z) == 15, "entry() on the card: r_z == 15")
+    check(EN.proofs_equal(outs[0][0], outs[1][0]) and all(
+        torch.equal(u.cpu(), v.cpu()) for u, v in zip(*(o[1] for o in outs))),
+        "entry() on the card == the CPU port's, every word")
+
+    # the dry run's BN254 SRS and both window tables built under empty
+    # caches of its own
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    with switches(HOME=DRYRUN_DIR, PLONK_TPU_CACHE=DRYRUN_DIR):
+        kernels.reset_counts()
+        legs, sec = wall(lambda: EN.dryrun_multichip(MSM_DIST_D, dev))
+    counts = dict(kernels.LAUNCHES)
+    print(f"dryrun_multichip({MSM_DIST_D}): {len(legs)} legs ok in "
+          f"{sec:.3f} s, launches {counts}")
+    check([n for n, _ in legs] == [n for n, _ in EN.dryrun_legs(
+        MSM_DIST_D, dev)], "the dry run's five legs")
+    check(all(counts.get(k, 0) > 0 for k in DRYRUN_KERNELS)
+          and "row_stages" not in counts,
+          f"the dry run launches {DRYRUN_KERNELS} and no K1: {counts}")
+
+    ev = msm_trace(dev)
+    print(f"trace_to around one sharded dist_msm call, after this "
+          f"process's earlier torch.profiler sessions: {ev['events']} "
+          f"device events, {ev['device_ms']:.3f} ms of device time (the "
+          f"device idle {100 * (1 - ev['device_ms'] / 1e3 / msm_s):.1f} % "
+          f"of an unprofiled call), K8's all_gather_kernel "
+          f"{'recorded' if ev['k8_events'] else 'not recorded'} "
+          f"({ev['k8_events']} events)")
+    print_kernel_times(kms)
+    print(f"phase 36 took {time.perf_counter() - t36:.1f} s")
+    entries = kernel_entries({"all_gather": DIST_KERNELS["all_gather"]}, kms,
+                             path_launches, errs, bounds,
+                             {"all_gather": library})
+    for e in entries:
+        e["path"] = MSM_DIST_PATH
     return entries
 
 
@@ -3525,7 +3744,7 @@ def main() -> None:
         check(bool(diags.all_ok()), f"n=16 diagnostics on {d}")
         small.append((c16, proof))
     (c16, p_cpu), (_, p_gpu) = small
-    check(proofs_equal(p_cpu, p_gpu), "n=16 GPU proof equals CPU proof")
+    check(EN.proofs_equal(p_cpu, p_gpu), "n=16 GPU proof equals CPU proof")
     for name, v in ANCHOR_SCALARS.items():
         check(int(getattr(p_gpu, name)) == v, f"anchor {name}")
     for name, (x, y) in ANCHOR_POINTS.items():
@@ -3589,14 +3808,16 @@ def main() -> None:
     scaled_batch_phase(dev, card)
     fs_batch_phase(dev, card, ctx, fsp)
     bn254_batch_phase(dev, card, bn, blake)
-    msm_phase(dev, card)
+    msm_phase(dev, card, args.profile)
     commit_routes_phase(dev, card, bn)
     cache_phase(dev, card, bn, bn_timings)
-    bn_dist_entries = dist_bn254_phase(dev, card, bn)
+    bn_dist_entries = dist_bn254_phase(dev, card, bn, args.profile)
+    msm_dist_entries = dist_msm_phase(dev, card)
     check("jax" not in sys.modules, "no JAX imported")
     print(f"all phases passed in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": entries + bn_entries + pr_entries
-                      + dist_entries + bn_dist_entries}))
+                      + dist_entries + bn_dist_entries
+                      + msm_dist_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1391,3 +1391,52 @@ def test_bn254_sharded_proof_on_cuda_matches_cpu(dev, monkeypatch,
         for name in PB.SCALAR_FIELDS:
             assert torch.equal(getattr(proofs[0], name),
                                getattr(proof, name).cpu()), name
+
+
+@pytest.mark.parametrize("exchange,launches", [
+    (None, {"all_gather": 1}), ("plain", {})])
+def test_dist_msm_on_cuda_matches_cpu(dev, exchange, launches):
+    """dist_msm of 2^12 toy points (bench_msm's draw, default_rng(1), 5-bit
+    windows and scalars) on 8 shards of the card equals the CPU port's and
+    the card's single-device msm_pippenger; through K8 the partials'
+    gather is one launch, under the plain exchange none."""
+    from plonk_tpu_torch.ops.field import Field
+    from plonk_tpu_torch.ops.msm import msm_pippenger
+    from plonk_tpu_torch.parallel import mesh as MS
+    from plonk_tpu_torch.parallel.dist_msm import dist_msm
+    from plonk_tpu_torch.utils.params import GF101, TOY_CURVE
+    F = Field(GF101)
+    rng = np.random.default_rng(1)
+    ks = rng.integers(1, 17, size=1 << 12)
+    sc = rng.integers(0, 17, size=1 << 12)
+    outs = []
+    for d in ("cpu", dev):
+        pts = C.g1_mul(F, C.g1_generator(TOY_CURVE, F, d),
+                       torch.as_tensor(ks, device=d), nbits=5)
+        mesh = MS.make_1d_mesh("sp", 8, device=d)
+        kernels.reset_counts()
+        got = dist_msm(F, mesh, pts, sc, window_bits=5, scalar_bits=5,
+                       exchange=exchange if d != "cpu" else None)
+        torch.cuda.synchronize()
+        if d != "cpu":
+            assert dict(kernels.LAUNCHES) == launches
+            assert got.x.device == mesh.device
+            single = msm_pippenger(F, pts, torch.as_tensor(sc, device=d),
+                                   window_bits=5, scalar_bits=5)
+            outs.append(tuple(int(c) for c in single))
+        outs.append(tuple(int(c) for c in got))
+    assert outs[0] == outs[1] == outs[2]
+
+
+def test_entry_on_cuda_matches_cpu(dev):
+    """The port's entry() on the card: r_z = 15, every output word equal to
+    the CPU port's, no kernel launched."""
+    from plonk_tpu_torch import entry as E
+    out = []
+    for d in ("cpu", dev):
+        fn, args = E.entry(device=d)
+        kernels.reset_counts()
+        out.append(fn(*args))
+        assert not dict(kernels.LAUNCHES)
+    assert int(out[1][0].r_z) == 15 and out[1][0].r_z.device.type == "cuda"
+    _same_words(out[0], out[1])

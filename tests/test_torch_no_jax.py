@@ -33,7 +33,8 @@ def test_port_imports_no_jax():
     assert bad.strip() == "[]"
     # the modules of every kernel, of every prims, of the sharded prover,
     # of the toy prover, its verifier and its batch, of the transcripts
-    # and bytes, and of the GLV MSM are among those imported
+    # and bytes, of the GLV MSM, of the sharded MSM, the profiling helpers
+    # and the entry points are among those imported
     for mod in ("ops.row_stages", "ops.fused_ntt", "ops.mxu_ntt",
                 "ops.commit", "ops.bigntt", "ops.bigcommit",
                 "models.plonk_scaled", "models.plonk_bn254",
@@ -42,5 +43,6 @@ def test_port_imports_no_jax():
                 "ops.msm", "ops.matrix", "models.constraints",
                 "models.presets", "models.verifier", "parallel.batch",
                 "ops.poseidon", "models.fiat_shamir", "models.fs_poseidon",
-                "utils.serialization", "utils.convert", "ops.glv"):
+                "utils.serialization", "utils.convert", "ops.glv",
+                "parallel.dist_msm", "utils.profiling", "entry"):
         assert f"plonk_tpu_torch.{mod}" in names.split(), mod
